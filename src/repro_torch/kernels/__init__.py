@@ -1,0 +1,21 @@
+"""Hand-written Hopper kernels of the port, one per Pallas kernel family
+of the JAX package's ``kernels/``.
+
+Beside each kernel sits its plain PyTorch version (`ref`): a wrapper
+runs the plain version for CPU tensors only, and launches the kernel —
+or raises — for CUDA tensors.  Sources live in ``csrc/`` and are built
+at first use (`build`).
+
+``KERNELS`` is the JAX package's registry of the eight kernel families,
+each with whether the port has it yet.
+"""
+KERNELS = {
+    "quant_roundtrip": False,
+    "broadcast_roundtrip": False,
+    "uplink_roundtrip": False,
+    "sign_roundtrip": False,
+    "topk_threshold": False,
+    "sophia_update": True,
+    "stale_accum": False,
+    "robust_agg": False,
+}
