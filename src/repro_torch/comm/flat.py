@@ -7,28 +7,54 @@ zero-padded and reshaped to a ``(rows, cols)`` buffer.  Leaves go in
 dict, so a buffer packed here holds the same coordinates at the same
 offsets as the JAX package's (`MLPTask`: ``b1,b2,b3,w1,w2,w3``).
 
-Buffers may carry leading (per-client) axes: `pack` / `unpack` treat
-every axis in front of a leaf's own shape as a lead axis, so one spec
-serves the ``(rows, cols)`` server model and the ``(C, rows, cols)``
-client stacks.
+Buffers may carry leading (per-client) axes: `pack` / `unpack` /
+`repack` treat every axis in front of a leaf's own shape as a lead
+axis, so one spec serves the ``(rows, cols)`` server model and the
+``(C, rows, cols)`` client stacks.
+
+The three wire streams share the flattened coordinate order but may
+disagree on ``cols`` (each stream's own ``quant_block``); `repack`
+moves a buffer between two geometries.
+
+This module also owns the versioned 24-byte wire `Header` every
+serialized payload carries (the layout of the JAX package's
+``docs/wire-format.md``), and `check_headers`, which refuses to restore
+comm state written under another layout.
 """
 from __future__ import annotations
 
+import dataclasses
+import struct
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-#: bytes of the versioned wire header every payload carries
-#: (``<magic 4s><version u16><compressor u8><flags u8><total u64>
-#: <quant_block u32><aux u32>``); the header itself waits for the comm
-#: slice, byte accounting needs only its size
-HEADER_BYTES = 24
+#: magic + version of the serialized wire-buffer format.  Version 2
+#: carries the resident-state dtype in the flags byte; version-1
+#: headers (flags = 0) still decode, as float32.
+WIRE_MAGIC = b"FSWB"
+WIRE_VERSION = 2
+SUPPORTED_WIRE_VERSIONS = (1, 2)
+#: <magic 4s><version u16><compressor u8><flags u8><total u64>
+#: <quant_block u32><aux u32>, little-endian.  flags (v2): low 4 bits =
+#: state-dtype id, high 4 bits reserved.
+_HEADER_STRUCT = struct.Struct("<4sHBBQII")
+HEADER_BYTES = _HEADER_STRUCT.size          # 24
+
+#: stable on-the-wire ids (append only)
+COMPRESSOR_IDS = {"identity": 0, "int8": 1, "int4": 2, "topk": 3,
+                  "signsgd": 4}
+_ID_COMPRESSORS = {v: k for k, v in COMPRESSOR_IDS.items()}
+STATE_DTYPE_IDS = {"float32": 0, "bfloat16": 1,
+                   "float8_e4m3fn": 2, "float8_e5m2": 3}
+_ID_STATE_DTYPES = {v: k for k, v in STATE_DTYPE_IDS.items()}
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float8_e4m3fn": torch.float8_e4m3fn,
                  "float8_e5m2": torch.float8_e5m2}
+assert set(_STATE_DTYPES) == set(STATE_DTYPE_IDS)
 
 
 def as_dtype(state_dtype: str) -> torch.dtype:
@@ -39,6 +65,124 @@ def as_dtype(state_dtype: str) -> torch.dtype:
         raise ValueError(
             f"unknown state_dtype {state_dtype!r} "
             f"(want one of {tuple(_STATE_DTYPES)})") from None
+
+
+@dataclass(frozen=True)
+class Header:
+    """The versioned 24-byte preamble of every serialized payload, and
+    the checkpoint fingerprint of wire-layout engine state.
+
+    ``aux`` carries the compressor's layout parameter (top-k: ``k``), 0
+    otherwise.  ``state_dtype`` (v2) is the storage dtype of resident
+    state written under this header; v1 headers decode as float32."""
+    compressor: str
+    total: int
+    quant_block: int
+    aux: int = 0
+    version: int = WIRE_VERSION
+    state_dtype: str = "float32"
+
+    def pack(self) -> bytes:
+        if self.compressor not in COMPRESSOR_IDS:
+            raise ValueError(f"unknown compressor {self.compressor!r}")
+        if self.state_dtype not in STATE_DTYPE_IDS:
+            raise ValueError(f"unknown state_dtype {self.state_dtype!r}")
+        flags = STATE_DTYPE_IDS[self.state_dtype]
+        if self.version == 1 and flags:
+            raise ValueError(
+                "wire-format v1 cannot carry a non-float32 state_dtype "
+                "(the flags byte was reserved = 0); write v2")
+        return _HEADER_STRUCT.pack(
+            WIRE_MAGIC, self.version, COMPRESSOR_IDS[self.compressor],
+            flags, self.total, self.quant_block, self.aux)
+
+    @classmethod
+    def unpack(cls, buf: bytes) -> "Header":
+        if len(buf) < HEADER_BYTES:
+            raise ValueError(
+                f"wire buffer too short for a header: {len(buf)} < "
+                f"{HEADER_BYTES} bytes")
+        magic, ver, comp_id, flags, total, qb, aux = \
+            _HEADER_STRUCT.unpack_from(buf)
+        if magic != WIRE_MAGIC:
+            raise ValueError(f"not a Fed-Sophia wire buffer (magic "
+                             f"{magic!r}, expected {WIRE_MAGIC!r})")
+        if ver not in SUPPORTED_WIRE_VERSIONS:
+            raise ValueError(
+                f"unsupported wire-format version {ver} (this build "
+                f"speaks versions {SUPPORTED_WIRE_VERSIONS})")
+        if comp_id not in _ID_COMPRESSORS:
+            raise ValueError(f"unknown wire compressor id {comp_id}")
+        if ver == 1:
+            if flags:
+                raise ValueError(f"wire-format v1 header with nonzero "
+                                 f"reserved flags byte ({flags:#x})")
+            sdt = "float32"
+        else:
+            if flags & 0xF0:
+                raise ValueError(f"wire-format v2 header with nonzero "
+                                 f"reserved flag bits ({flags:#x})")
+            if flags & 0x0F not in _ID_STATE_DTYPES:
+                raise ValueError(f"unknown wire state-dtype id "
+                                 f"{flags & 0x0F}")
+            sdt = _ID_STATE_DTYPES[flags & 0x0F]
+        return cls(compressor=_ID_COMPRESSORS[comp_id], total=total,
+                   quant_block=qb, aux=aux, version=ver, state_dtype=sdt)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"version": self.version, "compressor": self.compressor,
+                "total": self.total, "quant_block": self.quant_block,
+                "aux": self.aux, "state_dtype": self.state_dtype}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Header":
+        # v1 manifests predate the state_dtype field: default float32
+        return cls(compressor=d["compressor"], total=int(d["total"]),
+                   quant_block=int(d["quant_block"]),
+                   aux=int(d.get("aux", 0)),
+                   version=int(d.get("version", 1)),
+                   state_dtype=d.get("state_dtype", "float32"))
+
+
+def check_headers(saved: Dict[str, Dict[str, Any]],
+                  current: Dict[str, Dict[str, Any]]) -> None:
+    """Validate checkpointed per-stream wire headers against the current
+    engine's (`FedEngine.wire_headers`).  Raises ValueError naming every
+    mismatched stream and field.  Only the layout fields (compressor,
+    total, quant_block, aux) must match; ``state_dtype`` is a runtime
+    choice and is not compared, and any supported version loads."""
+    if not saved:
+        raise ValueError(
+            "the checkpoint manifest carries no wire headers: cannot "
+            "prove the comm/EF layouts match; re-save the checkpoint "
+            "with this build")
+    problems = []
+    for stream in sorted(set(saved) | set(current)):
+        if stream not in saved:
+            problems.append(f"stream {stream!r}: active now but the "
+                            "checkpoint has no wire header for it")
+            continue
+        if stream not in current:
+            problems.append(f"stream {stream!r}: present in the "
+                            "checkpoint but not active now")
+            continue
+        s, c = saved[stream], current[stream]
+        for d, when in ((s, "save time"), (c, "now")):
+            ver = int(d.get("version", 1))
+            if ver not in SUPPORTED_WIRE_VERSIONS:
+                problems.append(
+                    f"stream {stream!r}: wire-format version {ver} "
+                    f"({when}) is not supported by this build "
+                    f"({SUPPORTED_WIRE_VERSIONS})")
+        for field_ in ("compressor", "total", "quant_block", "aux"):
+            if s.get(field_) != c.get(field_):
+                problems.append(
+                    f"stream {stream!r}: {field_} was {s.get(field_)!r} "
+                    f"at save time but is {c.get(field_)!r} now")
+    if problems:
+        raise ValueError(
+            "wire-layout mismatch between checkpoint and current comm "
+            "config:\n  " + "\n  ".join(problems))
 
 
 @dataclass(frozen=True)
@@ -76,6 +220,12 @@ def flat_spec(tree: Dict[str, torch.Tensor], cols: int = 1024) -> FlatSpec:
     return FlatSpec(keys, sizes, shapes, dtypes, total, rows, cols)
 
 
+def with_cols(spec: FlatSpec, cols: int) -> FlatSpec:
+    """The same coordinates packed ``cols`` to a row (another stream's
+    geometry)."""
+    return dataclasses.replace(spec, cols=cols, rows=-(-spec.total // cols))
+
+
 def zeros(spec: FlatSpec, lead: Tuple[int, ...] = (),
           dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     """A zeroed flat state buffer in ``spec``'s layout, with optional
@@ -110,3 +260,20 @@ def unpack(flat: torch.Tensor, spec: FlatSpec) -> Dict[str, torch.Tensor]:
         out[k] = v[..., off:off + sz].reshape(lead + shp).to(dt)
         off += sz
     return out
+
+
+def repack(flat: torch.Tensor, from_spec: FlatSpec,
+           to_spec: FlatSpec) -> torch.Tensor:
+    """Re-lay a ``(*lead, rows, cols)`` buffer from one stream's geometry
+    into another's: the same flattened coordinates, the pad tail zeroed
+    again, the dtype kept.  Matching geometries return ``flat`` itself,
+    not a copy."""
+    if from_spec.total != to_spec.total:
+        raise ValueError(f"repack between incompatible specs: total "
+                         f"{from_spec.total} vs {to_spec.total}")
+    if (from_spec.rows, from_spec.cols) == (to_spec.rows, to_spec.cols):
+        return flat
+    lead = tuple(flat.shape[:-2])
+    v = flat.reshape(lead + (-1,))[..., :from_spec.total]
+    return F.pad(v, (0, to_spec.padded - to_spec.total)).reshape(
+        lead + (to_spec.rows, to_spec.cols))

@@ -3,14 +3,20 @@
 and `ObsConfig`, with the field names and defaults of the JAX
 package's ``configs/base.py``.
 
-The engine of this slice runs only the direct path (lossless identity
-uplink, full participation, no extra streams); `repro_torch.core.fed`
+The engine runs the direct path and the comm path with the
+`StochasticQuant` (int8/int4) compressors; `repro_torch.core.fed`
 raises `NotImplementedError` for every other setting, naming the
 ROADMAP item that ports it.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+
+#: The named wire streams of a federated round.  Every stream shares the
+#: flattened coordinate order of `repro_torch.comm.flat` and gets its own
+#: compressor and error-feedback policy via `CommConfig.stream(name)`.
+COMM_STREAMS = ("uplink", "downlink", "hessian")
 
 
 @dataclass(frozen=True)
@@ -25,7 +31,9 @@ class CommConfig:
     topk_ratio: float = 0.01          # k = ceil(ratio * n_params)
     sign_majority: bool = False       # signsgd: server majority vote on signs
     quant_block: int = 1024           # elements per quantization scale group
-    use_pallas: bool = False          # fused quantize/dequantize kernels
+    # kept for parity with the JAX config; on the card the quantize
+    # kernels always run, on the CPU their plain versions
+    use_pallas: bool = False
     seed: int = 0                     # participation-sampling salt
     # downlink stream (server -> client broadcast)
     downlink_compressor: str = "identity"
@@ -59,6 +67,28 @@ class CommConfig:
     def multi_stream(self) -> bool:
         """Any stream beyond the uplink is active."""
         return self.downlink_enabled or self.hessian_enabled
+
+    def stream(self, name: str) -> "CommConfig":
+        """Per-stream view: this config with ``compressor`` /
+        ``error_feedback`` / packing geometry (``quant_block``,
+        ``topk_ratio``) resolved for the named stream, so the same
+        compressor factory and accounting serve every stream."""
+        if name == "uplink":
+            return self
+        if name == "downlink":
+            return dataclasses.replace(
+                self, compressor=self.downlink_compressor,
+                error_feedback=self.downlink_error_feedback,
+                quant_block=self.downlink_quant_block or self.quant_block,
+                topk_ratio=self.downlink_topk_ratio or self.topk_ratio)
+        if name == "hessian":
+            c = self.hessian_compressor
+            return dataclasses.replace(
+                self, compressor="identity" if c == "off" else c,
+                error_feedback=False,
+                quant_block=self.hessian_quant_block or self.quant_block,
+                topk_ratio=self.hessian_topk_ratio or self.topk_ratio)
+        raise ValueError(f"unknown stream {name!r} (want {COMM_STREAMS})")
 
     def num_participants(self, num_clients: int) -> int:
         s = int(round(self.participation * num_clients))

@@ -6,7 +6,9 @@ hands back plain numpy.  Both directions are exact.  A state is a dict
 with ``params`` (a dict of leaves, or the packed ``(rows, cols)``
 buffer), ``round``, and, for persistent Fed-Sophia, ``client_opt``:
 the m/h stacks ``(C, rows, cols)`` as a pair or a ``{"m", "h"}``
-mapping.
+mapping.  The comm path's resident stacks — the uplink EF residuals
+``comm_ef`` and the downlink replicas and residuals ``comm_dn_model``,
+``comm_dn_ef`` — are carried as they are, where present.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.sophia import SophiaState
+
+#: the comm path's ``(C, rows, cols)`` state stacks
+COMM_KEYS = ("comm_ef", "comm_dn_model", "comm_dn_ef")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -52,6 +57,9 @@ def state_from_numpy(state: Dict[str, Any], device=None) -> Dict[str, Any]:
         m, h = (opt["m"], opt["h"]) if isinstance(opt, dict) else opt
         out["client_opt"] = SophiaState(m=_tensor(m, dev),
                                         h=_tensor(h, dev))
+    for key in COMM_KEYS:
+        if state.get(key) is not None:
+            out[key] = _tensor(state[key], dev)
     return out
 
 
@@ -66,4 +74,7 @@ def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
         opt = state["client_opt"]
         out["client_opt"] = {"m": opt.m.detach().cpu().numpy(),
                              "h": opt.h.detach().cpu().numpy()}
+    for key in COMM_KEYS:
+        if state.get(key) is not None:
+            out[key] = state[key].detach().cpu().numpy()
     return out

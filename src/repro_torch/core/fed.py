@@ -1,57 +1,80 @@
 """Federated runtime of the port: one `FedEngine.round` call is one
-communication round of Alg. 1 on the direct path (lossless identity
-uplink, full participation, no extra streams), for fed_sophia and
-fedavg.
+communication round of Alg. 1, for fed_sophia and fedavg.
 
-Two execution strategies, as in the JAX package:
-  * parallel   — the whole cohort steps together: the client axis is a
-                 batch dimension written out, and each local iteration
-                 is ONE client-batched Sophia kernel launch over the
-                 ``(C, rows, cols)`` stacks;
+Two round paths, as in the JAX package:
+  * direct — lossless identity uplink, full participation, no extra
+             streams: the server model is the mean of the client models;
+  * comm   — any compression, partial participation or extra stream:
+             the multi-stream delta-space pipeline (`_round_comm`)
+
+                 [downlink] broadcast delta theta - theta_i^rx (+ server
+                            EF) -> round-trip -> client replica updated
+                 local training from theta_i^rx
+                 [uplink]   delta theta_i - theta_i^rx (+ client EF)
+                            -> round-trip
+                 [hessian]  (optional) the Sophia h-EMA -> round-trip
+                 server: mean of the participants' reconstructions;
+                 one averaged-curvature payload back to them.
+
+             Only the S sampled participants train: their rows are
+             gathered up front and scattered back after.
+
+Two execution strategies:
+  * parallel   — the cohort steps together: the client axis is a batch
+                 dimension written out; each stage (downlink, each local
+                 iteration's Sophia update, uplink, hessian) is ONE
+                 client-batched kernel launch over ``(N, rows, cols)``;
   * sequential — a Python loop over clients, one flat launch per client
-                 per local iteration; the aggregate is ``Σ_i t_i / C``
-                 in client order.
+                 per stage; sums accumulate in client order.
 
 The engine is flat-resident: the packed ``(rows, cols)`` fp32 wire
-buffer of `repro_torch.comm.flat` holds the round-start model, each
-client's evolving theta, the Sophia m/h EMAs (``(C, rows, cols)``
-across rounds) and the GNB estimates.  Parameter dicts exist only at
-the loss/grad boundary (one unpack view in, one pack of the grads out).
+buffer of `repro_torch.comm.flat` holds the server model, each client's
+evolving theta, the Sophia m/h EMAs (``(C, rows, cols)`` across rounds),
+the uplink EF residuals and the downlink replicas.  Parameter dicts
+exist only at the loss/grad boundary.
 
 Host-side scalars: the round index, the local step and ``do_h`` are
 Python ints/bools, and lr is a 0-dim float32 CPU tensor, so no step
 reads the device.
 
-Randomness (the RNG seam): the GNB's sampled labels are
-``argmax(logits + gumbel)``.  `round` takes a `torch.Generator`, from
-which it draws the gumbel noise on the device, or an injected noise
-tensor (the tests inject the JAX package's own draws).
+Randomness (the RNG seam).  The round's random inputs are the GNB's
+gumbel label noise, the participation sample and the U[0, 1) noise of
+each quantized stream.  `round` draws each from a `torch.Generator` on
+the device, or takes it injected (the tests inject the JAX package's own
+draws): ``gumbel`` as ``(C, draws, B, K)`` and ``comm_noise`` as a dict
+indexed by client id (see `round`).  Participant k gets client
+``ids[k]``'s draws.
 
-Settings outside this slice raise `NotImplementedError`, naming the
+Settings outside the port so far raise `NotImplementedError`, naming the
 ROADMAP item that ports them.
 """
 from __future__ import annotations
 
-import functools
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.comm import accounting
-from repro_torch.comm.flat import (FlatSpec, as_dtype, flat_spec, pack,
-                                   unpack, zeros)
-from repro_torch.configs.base import FedConfig, RobustConfig
+from repro_torch.comm import accounting, downlink
+from repro_torch.comm.compressors import (BIASED, StochasticQuant,
+                                          make_compressor,
+                                          make_stream_compressor,
+                                          participation_sample,
+                                          wants_error_feedback)
+from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, flat_spec,
+                                   pack, repack, unpack, with_cols, zeros)
+from repro_torch.configs.base import COMM_STREAMS, FedConfig, RobustConfig
 from repro_torch.core.gnb import gnb_estimate
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
 from repro_torch.models.small import gumbel_noise
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1: {})"
+_COMPRESSORS = ("identity", "int8", "int4") + tuple(sorted(BIASED))
 
 
 def _check_slice(fed: FedConfig) -> None:
-    """Reject every setting this slice does not run."""
+    """Reject every setting the port does not run yet."""
     if fed.optimizer in ("done", "fedadam", "fedyogi"):
         raise NotImplementedError(
             f"optimizer {fed.optimizer!r} "
@@ -64,13 +87,27 @@ def _check_slice(fed: FedConfig) -> None:
         raise ValueError(
             f"unknown hessian_every_unit {fed.hessian_every_unit!r}")
     comm = fed.comm
-    C = fed.num_clients
-    if not (comm.lossless and comm.num_participants(C) == C
-            and not comm.multi_stream):
+    for stream in COMM_STREAMS:
+        c = comm.stream(stream).compressor
+        if c not in _COMPRESSORS:
+            raise ValueError(f"unknown {stream} compressor {c!r}")
+        if c in BIASED:
+            raise NotImplementedError(
+                f"the {c!r} compressor ({stream} stream) is "
+                + _ROADMAP.format("'TopK and SignSGD'"))
+    if not 0.0 < comm.participation <= 1.0:
+        raise ValueError(f"participation={comm.participation} must be in "
+                         "(0, 1]")
+    if comm.hessian_enabled and not (fed.optimizer == "fed_sophia"
+                                     and fed.persistent_client_state):
+        raise ValueError(
+            "the hessian comm stream aggregates the Sophia h-EMA: it "
+            "requires optimizer='fed_sophia' with "
+            "persistent_client_state=True")
+    if fed.sched.dispatch_chunk > 0:
         raise NotImplementedError(
-            "a non-default CommConfig (compression, partial "
-            "participation or extra streams) takes the comm path, "
-            + _ROADMAP.format("'the comm path'"))
+            "SchedConfig.dispatch_chunk > 0 is "
+            + _ROADMAP.format("'the scheduler'"))
     if fed.robust != RobustConfig():
         raise NotImplementedError(
             "robust aggregation and attacks are "
@@ -90,15 +127,48 @@ def _check_slice(fed: FedConfig) -> None:
                 + _ROADMAP.format("'resident dtype policy'"))
 
 
+class CommRuntime(NamedTuple):
+    """The comm path's (spec, compressor) per active stream.  ``spec``
+    (the uplink layout) is also the layout of all flat-resident engine
+    state; the downlink and hessian streams may pack the same flattened
+    coordinates with their own ``quant_block`` (`repack` moves buffers
+    between the geometries)."""
+    spec: FlatSpec
+    comp: Any
+    spec_dn: Optional[FlatSpec] = None
+    comp_dn: Any = None
+    spec_h: Optional[FlatSpec] = None
+    comp_h: Any = None
+
+    @property
+    def dn_on(self) -> bool:
+        return self.comp_dn is not None
+
+    @property
+    def h_on(self) -> bool:
+        return self.comp_h is not None
+
+
+class ClientNoise(NamedTuple):
+    """The random inputs of one client step (or of the cohort's, each
+    with a leading participant axis): ``gumbel(j)`` is GNB draw j,
+    ``uniform(stream)`` the U[0, 1) noise of a quantized stream
+    ("uplink", "downlink", "hessian"), None where the stream needs
+    none."""
+    gumbel: Callable[[int], torch.Tensor]
+    uniform: Callable[[str], Optional[torch.Tensor]]
+
+
 class FedEngine:
     def __init__(self, task, fed: FedConfig, device=None):
         _check_slice(fed)
         self.task = task
         self.fed = fed
         self.device = resolve_device(device)
-        # the layout of packed-resident params (set by init / pack_state):
-        # a packed buffer carries no keys, so rounds over it read this
-        self._spec: Optional[FlatSpec] = None
+        # the runtime of the packed-resident state (set by init /
+        # pack_state): a packed buffer carries no keys, so rounds over it
+        # read the layout from here
+        self._rt: Optional[CommRuntime] = None
 
     # ------------------------------------------------- residency helpers
     @staticmethod
@@ -111,19 +181,41 @@ class FedEngine:
         return (self.fed.optimizer == "fed_sophia"
                 and self.fed.persistent_client_state)
 
-    def _require_spec(self) -> FlatSpec:
-        if self._spec is None:
+    def _require_rt(self) -> CommRuntime:
+        if self._rt is None:
             raise ValueError(
                 "packed-resident state reached the engine before its "
                 "layout was established: create the state with this "
                 "engine's init() + pack_state()")
-        return self._spec
+        return self._rt
+
+    def comm_runtime(self, spec: FlatSpec) -> CommRuntime:
+        """The per-stream (spec, compressor) handles over ``spec``."""
+        comm = self.fed.comm
+        kw: Dict[str, Any] = {}
+        if comm.downlink_enabled:
+            s = with_cols(spec, comm.stream("downlink").quant_block)
+            kw.update(spec_dn=s,
+                      comp_dn=make_stream_compressor(comm, "downlink", s))
+        if comm.hessian_enabled:
+            s = with_cols(spec, comm.stream("hessian").quant_block)
+            kw.update(spec_h=s,
+                      comp_h=make_stream_compressor(comm, "hessian", s))
+        return CommRuntime(spec=spec, comp=make_compressor(comm, spec),
+                           **kw)
+
+    def runtime_for(self, params) -> CommRuntime:
+        """`comm_runtime` of ``params`` under either residency."""
+        if self.params_packed(params):
+            return self._require_rt()
+        spec = flat_spec(params, cols=self.fed.comm.quant_block)
+        if self._rt is None or self._rt.spec != spec:
+            self._rt = self.comm_runtime(spec)
+        return self._rt
 
     def spec_for(self, params) -> FlatSpec:
         """The wire layout of ``params`` under either residency."""
-        if self.params_packed(params):
-            return self._require_spec()
-        return flat_spec(params, cols=self.fed.comm.quant_block)
+        return self.runtime_for(params).spec
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -132,15 +224,25 @@ class FedEngine:
 
     def init_from_params(self, params) -> Dict[str, Any]:
         """A round-0 state around given initial params (weights carried
-        over from elsewhere, e.g. `repro_torch.convert`)."""
-        spec = self.spec_for(params)
-        self._spec = spec
+        over from elsewhere, e.g. `repro_torch.convert`): zero Sophia
+        EMAs and EF residuals, and downlink replicas in sync with the
+        model."""
+        rt = self.runtime_for(params)
+        spec = rt.spec
+        C = self.fed.num_clients
+        comm = self.fed.comm
         state: Dict[str, Any] = {"params": params, "round": 0}
         if self._stateful():
-            C = self.fed.num_clients
             state["client_opt"] = SophiaState(
                 m=zeros(spec, (C,), device=self.device),
                 h=zeros(spec, (C,), device=self.device))
+        if wants_error_feedback(comm):
+            state["comm_ef"] = zeros(spec, (C,), device=self.device)
+        if comm.downlink_enabled:
+            theta = (params.to(torch.float32) if self.params_packed(params)
+                     else pack(params, spec))
+            state.update(downlink.init_state(
+                comm, rt.spec_dn, repack(theta, spec, rt.spec_dn), C))
         return state
 
     # ------------------------------------------- packed-resident boundary
@@ -150,16 +252,14 @@ class FedEngine:
         params = state["params"]
         if self.params_packed(params):
             return state
-        spec = self.spec_for(params)
-        self._spec = spec
-        return {**state, "params": pack(params, spec)}
+        return {**state, "params": pack(params, self.spec_for(params))}
 
     def unpack_state(self, state) -> Dict[str, Any]:
         """Inverse of `pack_state`.  Idempotent on dict-resident state."""
         params = state["params"]
         if not self.params_packed(params):
             return state
-        return {**state, "params": unpack(params, self._require_spec())}
+        return {**state, "params": unpack(params, self._require_rt().spec)}
 
     def unpack_params(self, state):
         """The params dict view of ``state`` under either residency."""
@@ -169,18 +269,67 @@ class FedEngine:
         """True model coordinate count (the pad tail never counts)."""
         return self.spec_for(state["params"]).total
 
+    # ------------------------------------------------------ comm plumbing
+    def uses_direct_path(self) -> bool:
+        """Whether `round` takes the direct client-mean path (lossless
+        identity, full participation, no extra streams)."""
+        comm = self.fed.comm
+        C = self.fed.num_clients
+        return (comm.lossless and comm.num_participants(C) == C
+                and not comm.multi_stream)
+
+    def round_participants(self, generator: torch.Generator
+                           ) -> torch.Tensor:
+        """The sorted client ids ``round(state, batches,
+        generator=generator)`` trains, without advancing ``generator``."""
+        C = self.fed.num_clients
+        S = self.fed.comm.num_participants(C)
+        if S == C:
+            return torch.arange(C, device=self.device)
+        saved = generator.get_state()
+        ids = participation_sample(generator, C, S)
+        generator.set_state(saved)
+        return ids.to(self.device)
+
+    def wire_headers(self, params) -> Dict[str, Dict[str, Any]]:
+        """Versioned wire headers of every active stream, plus the
+        ``client_state`` layout of the flat-resident Sophia state, as
+        plain dicts (`repro_torch.comm.flat.check_headers` compares
+        them)."""
+        rt = self.runtime_for(params)
+        out = {"uplink": rt.comp.header().to_dict()}
+        if rt.dn_on:
+            out["downlink"] = rt.comp_dn.header().to_dict()
+        if rt.h_on:
+            out["hessian"] = rt.comp_h.header().to_dict()
+        if self._stateful():
+            out["client_state"] = Header(
+                compressor="identity", total=rt.spec.total,
+                quant_block=rt.spec.cols,
+                state_dtype=self.fed.comm.state_dtype).to_dict()
+        return out
+
     # ------------------------------------------------------------- the round
     def round(self, state, batches, *, generator: torch.Generator = None,
-              gumbel: torch.Tensor = None):
+              gumbel: torch.Tensor = None,
+              comm_noise: Dict[str, Any] = None):
         """batches: dict of leaves with leading client axis C.  Returns
         ``(state, metrics)``.
 
-        GNB noise comes from ``generator`` (drawn on the device) or from
-        ``gumbel``: ``(C, J, B, K)`` for ``hessian_every_unit="step"``
-        (index j is local step j), ``(C, 1, B, K)`` for ``"round"``.
+        Random inputs come from ``generator`` (drawn on the device) or are
+        injected:
+          * ``gumbel``: the GNB noise, ``(C, J, B, K)`` for
+            ``hessian_every_unit="step"`` (index j is local step j),
+            ``(C, 1, B, K)`` for ``"round"``;
+          * ``comm_noise`` (comm path only): ``"participants"``, the S
+            sorted client ids (needed when S < C); per quantized stream
+            its U[0, 1) noise by client id, ``"uplink"`` ``(C, rows,
+            cols)``, ``"downlink"`` and ``"hessian"`` in their streams'
+            geometry; with the hessian stream, ``"server_hessian"``
+            ``(rows, cols)``, the server's curvature broadcast.
 
-        Resident state is updated in place — the Sophia m/h stacks of
-        ``state["client_opt"]`` included — the counterpart of the JAX
+        Resident state is updated in place — the Sophia m/h stacks, EF
+        residuals and replicas included — the counterpart of the JAX
         round's buffer donation: do not reuse the state passed in;
         rebind the returned one."""
         fed = self.fed
@@ -190,21 +339,28 @@ class FedEngine:
         if batches["y"].shape[0] != C:
             raise ValueError(f"batches carry {batches['y'].shape[0]} "
                              f"clients, the config {C}")
-        spec = self.spec_for(state["params"])
-        noise = self._gumbel_source(batches, generator, gumbel)
-        state, loss = self._round_direct(state, batches, noise, round_idx,
-                                         lr, spec)
+        rt = self.runtime_for(state["params"])
+        if self.uses_direct_path():
+            noise = self._gumbel_source(batches, generator, gumbel, None)
+            state, loss = self._round_direct(state, batches, noise,
+                                             round_idx, lr, rt.spec)
+        else:
+            state, loss = self._round_comm(state, batches, generator,
+                                           gumbel, comm_noise, round_idx,
+                                           lr, rt)
         state = {**state, "round": round_idx + 1}
-        wire = accounting.round_bytes(fed.comm, spec.total, C)
-        metrics = {"loss": loss, "lr": lr, "participants": C}
+        wire = accounting.round_bytes(fed.comm, rt.spec.total, C)
+        metrics = {"loss": loss, "lr": lr,
+                   "participants": wire["participants"]}
         for k in ("uplink_bytes", "downlink_bytes", "hessian_uplink_bytes",
                   "hessian_downlink_bytes", "total_bytes"):
             metrics[k] = wire[k]
         return state, metrics
 
-    def _gumbel_source(self, batches, generator, gumbel):
+    def _gumbel_source(self, batches, generator, gumbel, ids):
         """``noise(clients, j)`` -> the gumbel noise of GNB draw ``j`` for
-        ``clients`` (a slice of the cohort, or one client index)."""
+        ``clients`` (``slice(None)`` for the cohort, or one position).
+        ``ids``: the participants' client ids, None for all C."""
         fed = self.fed
         C = fed.num_clients
         B = int(batches["y"].shape[1])
@@ -216,14 +372,86 @@ class FedEngine:
                 raise ValueError(f"gumbel noise has shape "
                                  f"{tuple(gumbel.shape)}, want {want}")
             noise = gumbel.to(self.device, torch.float32)
+            if ids is not None:
+                noise = noise.index_select(0, ids)
             return lambda clients, j: noise[clients, j]
         if generator is None:
             raise ValueError("round() needs a generator or injected gumbel "
                              "noise for the GNB estimate")
+        n = C if ids is None else int(ids.shape[0])
 
         def draw(clients, j):
-            lead = (C,) if isinstance(clients, slice) else ()
+            lead = (n,) if isinstance(clients, slice) else ()
             return gumbel_noise(generator, lead + (B, K), self.device)
+        return draw
+
+    def _participants(self, generator, comm_noise) -> Optional[torch.Tensor]:
+        """The round's sorted participant ids on the device, or None when
+        every client takes part."""
+        C = self.fed.num_clients
+        S = self.fed.comm.num_participants(C)
+        if S == C:
+            return None
+        if comm_noise is not None and "participants" in comm_noise:
+            ids = torch.as_tensor(comm_noise["participants"],
+                                  dtype=torch.int64).to(self.device)
+            if tuple(ids.shape) != (S,):
+                raise ValueError(f"participants has shape "
+                                 f"{tuple(ids.shape)}, want ({S},)")
+            return ids
+        if generator is None:
+            raise ValueError("round() needs a generator or injected "
+                             "comm_noise['participants']")
+        return participation_sample(generator, C, S).to(self.device)
+
+    def _uniform_source(self, rt, generator, comm_noise, ids):
+        """``noise(stream, clients)`` -> U[0, 1) noise of ``stream`` for
+        ``clients`` (``slice(None)`` for the cohort, or one position);
+        ``noise("server_hessian", None)`` is the server's draw.  None for
+        a stream that needs no noise."""
+        C = self.fed.num_clients
+        S = C if ids is None else int(ids.shape[0])
+        shapes = {}
+        if isinstance(rt.comp, StochasticQuant):
+            shapes["uplink"] = (rt.spec.rows, rt.spec.cols)
+        if rt.dn_on:
+            shapes["downlink"] = (rt.spec_dn.rows, rt.spec_dn.cols)
+        if rt.h_on:
+            shapes["hessian"] = (rt.spec_h.rows, rt.spec_h.cols)
+            shapes["server_hessian"] = shapes["hessian"]
+        if comm_noise is not None:
+            given = {}
+            for stream, shape in shapes.items():
+                if stream not in comm_noise:
+                    raise ValueError(f"comm_noise lacks {stream!r}")
+                u = torch.as_tensor(comm_noise[stream]).to(self.device,
+                                                           torch.float32)
+                lead = () if stream == "server_hessian" else (C,)
+                if tuple(u.shape) != lead + shape:
+                    raise ValueError(
+                        f"comm_noise[{stream!r}] has shape "
+                        f"{tuple(u.shape)}, want {lead + shape}")
+                if lead and ids is not None:
+                    u = u.index_select(0, ids)
+                given[stream] = u
+
+            def take(stream, clients):
+                if stream not in given:
+                    return None
+                u = given[stream]
+                return u if clients is None else u[clients]
+            return take
+        if generator is None and shapes:
+            raise ValueError("round() needs a generator or injected "
+                             "comm_noise for the quantized streams")
+
+        def draw(stream, clients):
+            if stream not in shapes:
+                return None
+            lead = (S,) if isinstance(clients, slice) else ()
+            u = torch.rand(lead + shapes[stream], generator=generator,
+                           device=generator.device)
+            return u.to(self.device)
         return draw
 
     def _round_direct(self, state, batches, noise, round_idx, lr, spec):
@@ -248,7 +476,7 @@ class FedEngine:
                          else SophiaState(m=opts.m[i], h=opts.h[i]))
                 t_i, _, loss = self._local_update_flat(
                     spec, theta, opt_i, {k: v[i] for k, v in batches.items()},
-                    functools.partial(noise, i), round_idx, lr)
+                    lambda j, i=i: noise(i, j), round_idx, lr)
                 agg_flat = agg_flat + t_i / C
                 losses.append(loss)
             losses = torch.stack(losses)
@@ -263,14 +491,201 @@ class FedEngine:
             state = {**state, "client_opt": new_opt}
         return state, torch.mean(losses)
 
+    def _round_comm(self, state, batches, generator, gumbel, comm_noise,
+                    round_idx, lr, rt):
+        """The multi-stream delta-space round (module docstring): with
+        the downlink and hessian streams off it is the uplink pipeline
+        alone.  Participants' rows are gathered (copies) before training
+        and scattered back with ``index_copy_``; at full participation
+        the resident stacks are used as they are."""
+        fed = self.fed
+        C = fed.num_clients
+        S = fed.comm.num_participants(C)
+        spec = rt.spec
+        params = state["params"]
+        packed = self.params_packed(params)
+        theta = (params.to(torch.float32) if packed
+                 else pack(params, spec))
+        theta_dn = repack(theta, spec, rt.spec_dn) if rt.dn_on else None
+        ids = self._participants(generator, comm_noise)
+        gnb = self._gumbel_source(batches, generator, gumbel, ids)
+        uniform = self._uniform_source(rt, generator, comm_noise, ids)
+        opts = state.get("client_opt") if self._stateful() else None
+        ef = state.get("comm_ef")
+        dn_model = state.get(downlink.MODEL_KEY)
+        dn_ef = state.get(downlink.EF_KEY)
+
+        def take(x):
+            return x if x is None or ids is None else x.index_select(0, ids)
+
+        opts_g = (None if opts is None
+                  else SophiaState(m=take(opts.m), h=take(opts.h)))
+        ef_g, dnm_g, dnef_g = take(ef), take(dn_model), take(dn_ef)
+        batches_g = {k: take(v) for k, v in batches.items()}
+
+        if fed.strategy == "parallel":
+            cohort = slice(None)
+            (wires, stats, ef_new, opt_new, losses, dnm_new, dnef_new,
+             h_hat, h_stats) = self.comm_client_step_batched(
+                rt, theta, theta_dn, round_idx, lr, opts_g, ef_g, dnm_g,
+                dnef_g, batches_g,
+                ClientNoise(lambda j: gnb(cohort, j),
+                            lambda stream: uniform(stream, cohort)))
+            agg = torch.sum(wires, dim=0) / S
+            wstat = torch.sum(stats) / S
+            if rt.dn_on:
+                dn_mean = torch.sum(dnm_new, dim=0) / S
+            if rt.h_on:
+                h_agg = torch.sum(h_hat, dim=0) / S
+                h_wstat = torch.sum(h_stats) / S
+        else:
+            agg = zeros(spec, device=self.device)
+            wstat = torch.zeros((), device=self.device)
+            dn_mean = zeros(rt.spec_dn, device=self.device) if rt.dn_on \
+                else None
+            if rt.h_on:
+                h_agg = zeros(rt.spec_h, device=self.device)
+                h_wstat = torch.zeros((), device=self.device)
+            losses = []
+            for k in range(S):
+                opt_k = (None if opts_g is None
+                         else SophiaState(m=opts_g.m[k], h=opts_g.h[k]))
+                (wire, stat, ef_k, _, loss, dnm_k, dnef_k, h_hat_k,
+                 h_stat_k) = self.comm_client_step(
+                    rt, theta, theta_dn, round_idx, lr, opt_k,
+                    None if ef_g is None else ef_g[k],
+                    None if dnm_g is None else dnm_g[k],
+                    None if dnef_g is None else dnef_g[k],
+                    {n: v[k] for n, v in batches_g.items()},
+                    ClientNoise(lambda j, k=k: gnb(k, j),
+                                lambda stream, k=k: uniform(stream, k)))
+                agg = agg + wire / S
+                wstat = wstat + stat / S
+                # client k's rows are read only by its own step: its new
+                # rows go straight back into the (gathered) stacks
+                for rows, new in ((ef_g, ef_k), (dnm_g, dnm_k),
+                                  (dnef_g, dnef_k)):
+                    if rows is not None:
+                        rows[k].copy_(new)
+                if rt.dn_on:
+                    dn_mean = dn_mean + dnm_k / S
+                if rt.h_on:
+                    h_agg = h_agg + h_hat_k / S
+                    h_wstat = h_wstat + h_stat_k / S
+                losses.append(loss)
+            losses = torch.stack(losses)
+            # the m/h rows were updated in place in the (gathered) stacks
+            ef_new, opt_new, dnm_new, dnef_new = ef_g, opts_g, dnm_g, dnef_g
+
+        agg = rt.comp.server_combine(agg, wstat)
+        if rt.dn_on:
+            # clients trained from their OWN replicas: the aggregate is
+            # mean_S(replica + decoded delta), written as a correction
+            # against the true server model
+            agg = agg + repack(dn_mean - theta_dn, rt.spec_dn, spec)
+        new_theta = theta + agg
+        if packed:
+            state = {**state, "params": new_theta.to(params.dtype)}
+        else:
+            state = {**state, "params": unpack(new_theta, spec)}
+
+        def scatter(full, rows):
+            return rows if ids is None else full.index_copy_(0, ids, rows)
+
+        if opts is not None:
+            h = scatter(opts.h, opt_new.h)
+            if rt.h_on:
+                # curvature averaging: every participant's h re-synced to
+                # the re-quantized common broadcast
+                h_down, _ = rt.comp_h.roundtrip(
+                    uniform("server_hessian", None),
+                    rt.comp_h.server_combine(h_agg, h_wstat))
+                h_common = repack(h_down, rt.spec_h, spec)
+                h_common = h_common.expand((S,) + tuple(h_common.shape))
+                if ids is None:
+                    h.copy_(h_common)
+                else:
+                    h.index_copy_(0, ids, h_common)
+            state = {**state, "client_opt": SophiaState(
+                m=scatter(opts.m, opt_new.m), h=h)}
+        for key, full, rows in (("comm_ef", ef, ef_new),
+                                (downlink.MODEL_KEY, dn_model, dnm_new),
+                                (downlink.EF_KEY, dn_ef, dnef_new)):
+            if full is not None:
+                state = {**state, key: scatter(full, rows)}
+        return state, torch.mean(losses)
+
+    # ----------------------------------------------- comm-path client step
+    def comm_client_step(self, rt: CommRuntime, theta, theta_dn, round_idx,
+                         lr, opt, ef_i, dnm_i, dnef_i, batch,
+                         noise: ClientNoise):
+        """One participant's comm-path step: downlink broadcast (replica
+        update) -> local training from the received model -> uplink
+        encode [-> hessian-EMA round-trip].
+
+        ``theta``: the packed server model (``rt.spec``); ``theta_dn``:
+        the same coordinates in the downlink geometry (None when that
+        stream is off).  ``opt`` (m/h) is updated in place; ``ef_i``,
+        ``dnm_i``, ``dnef_i`` are read, not written.  Returns ``(xhat,
+        stat, ef_new, opt_new, loss, dnm_new, dnef_new, h_hat, h_stat)``
+        with None for inactive pieces."""
+        if rt.dn_on:
+            dnm_i, dnef_i = downlink.broadcast(
+                rt.comp_dn, noise.uniform("downlink"), theta_dn, dnm_i,
+                dnef_i)
+            start = repack(dnm_i, rt.spec_dn, rt.spec)
+        else:
+            start = theta
+        t_i, opt_i, loss = self._local_update_flat(
+            rt.spec, start, opt, batch, noise.gumbel, round_idx, lr)
+        xhat, stat, ef_new = rt.comp.encode_delta(
+            noise.uniform("uplink"), t_i, start, ef_i)
+        h_hat = h_stat = None
+        if rt.h_on:
+            h_hat, h_stat = rt.comp_h.roundtrip(
+                noise.uniform("hessian"),
+                repack(opt_i.h, rt.spec, rt.spec_h).to(torch.float32))
+        return (xhat, stat, ef_new, opt_i, loss,
+                dnm_i if rt.dn_on else None, dnef_i, h_hat, h_stat)
+
+    def comm_client_step_batched(self, rt: CommRuntime, theta, theta_dn,
+                                 round_idx, lr, opts, efs, dnms, dnefs,
+                                 batches, noise: ClientNoise):
+        """`comm_client_step` for the whole cohort: every per-client
+        argument carries a leading client axis N (None when off), and
+        ``theta`` / ``theta_dn`` stay the one shared server model.  Each
+        stage — downlink broadcast, each local Sophia iteration, uplink
+        encode, the hessian round-trip — is ONE client-batched kernel
+        launch.  Returns the 9-tuple of `comm_client_step`, stacked
+        along clients."""
+        if rt.dn_on:
+            dnms, dnefs = downlink.broadcast_batched(
+                rt.comp_dn, noise.uniform("downlink"), theta_dn, dnms,
+                dnefs)
+            starts = repack(dnms, rt.spec_dn, rt.spec)
+        else:
+            starts = theta
+        t, opt, losses = self._local_update_flat_batched(
+            rt.spec, starts, opts, batches, lambda _, j: noise.gumbel(j),
+            round_idx, lr)
+        xhat, stats, ef_new = rt.comp.encode_delta_batched(
+            noise.uniform("uplink"), t, starts, efs)
+        h_hat = h_stats = None
+        if rt.h_on:
+            h_hat, h_stats = rt.comp_h.roundtrip_batched(
+                noise.uniform("hessian"),
+                repack(opt.h, rt.spec, rt.spec_h).to(torch.float32))
+        return (xhat, stats, ef_new, opt, losses,
+                dnms if rt.dn_on else None, dnefs, h_hat, h_stats)
+
     # ------------------------------------------------- one client, dispatch
     def _local_update_flat(self, spec, theta, opt, batch, noise, round_idx,
                            lr):
-        """One client's local training.  ``theta``: the shared
-        ``(rows, cols)`` start model (not written); ``opt``: a
-        `SophiaState` of ``(rows, cols)`` buffers, updated in place, or
-        None.  ``noise(j)`` gives GNB draw j.  Returns ``(new_theta,
-        new_opt_or_None, mean_loss)``."""
+        """One client's local training.  ``theta``: the ``(rows, cols)``
+        start model (not written); ``opt``: a `SophiaState` of ``(rows,
+        cols)`` buffers, updated in place, or None.  ``noise(j)`` gives
+        GNB draw j.  Returns ``(new_theta, new_opt_or_None,
+        mean_loss)``."""
         fed = self.fed
         if fed.optimizer == "fed_sophia":
             if opt is None:   # stateless: fresh EMAs each round
@@ -285,10 +700,13 @@ class FedEngine:
 
     def _local_update_flat_batched(self, spec, theta, opts, batches, noise,
                                    round_idx, lr):
-        """`_local_update_flat` for the whole cohort: per-client state
-        carries a leading client axis N; ``noise(clients, j)``."""
+        """`_local_update_flat` for a cohort of N clients: per-client
+        state carries a leading client axis N; ``theta`` is the shared
+        ``(rows, cols)`` start model or a per-client ``(N, rows, cols)``
+        stack (downlink replicas), never written; ``noise(clients,
+        j)``."""
         fed = self.fed
-        N = fed.num_clients
+        N = int(batches["y"].shape[0])
         if fed.optimizer == "fed_sophia":
             if opts is None:   # stateless: fresh EMAs each round
                 opts = SophiaState(
@@ -350,20 +768,27 @@ class FedEngine:
     def _local_sophia_flat(self, spec, theta, m, h, batch, round_idx, noise,
                            lr):
         """Flat-resident Sophia local loop of one client."""
-        t = theta.clone()          # theta is every client's start model
+        t = theta.clone()          # theta is not the engine's to write
         losses = self._sophia_loop(spec, t, m, h, batch, round_idx, noise,
                                    lr)
         return t, m, h, torch.mean(losses)
+
+    @staticmethod
+    def _cohort_start(theta, n: int) -> torch.Tensor:
+        """A writable ``(n, rows, cols)`` copy of the start model(s): an
+        expand() view has stride 0, and the kernel writes the stack in
+        place; a per-client stack (the replicas) is not the loop's to
+        write either."""
+        if theta.ndim == 3:
+            return theta.clone()
+        return theta.expand((n,) + tuple(theta.shape)).contiguous()
 
     def _local_sophia_flat_batched(self, spec, theta, m, h, batches,
                                    round_idx, noise, lr):
         """`_local_sophia_flat` for N clients at once: one batched kernel
         launch per local iteration over the ``(N, rows, cols)``
         stacks."""
-        N = m.shape[0]
-        # materialise the shared start model per client: an expand() view
-        # has stride 0 and the kernel writes the stack in place
-        t = theta.expand((N,) + tuple(theta.shape)).contiguous()
+        t = self._cohort_start(theta, m.shape[0])
         cohort = slice(None)
         losses = self._sophia_loop(spec, t, m, h, batches, round_idx,
                                    lambda j: noise(cohort, j), lr)
@@ -381,6 +806,5 @@ class FedEngine:
 
     def _local_sgd_flat_batched(self, spec, theta, batches, lr):
         """`_local_sgd_flat` for N clients at once."""
-        N = self.fed.num_clients
-        t = theta.expand((N,) + tuple(theta.shape)).contiguous()
+        t = self._cohort_start(theta, int(batches["y"].shape[0]))
         return self._local_sgd_flat(spec, t, batches, lr)

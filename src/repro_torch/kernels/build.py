@@ -1,15 +1,17 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels, and the launch
+constants their wrappers share.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``build/repro_torch/`` at the repository root (named by the source's
-hash, so an edited source rebuilds) and loaded with `ctypes`.  Nothing
-is built when a module is imported, and nothing is built for CPU
-tensors.
+``build/repro_torch/`` at the repository root (named by the hash of the
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds) and loaded with `ctypes`.  Nothing is built
+when a module is imported, and nothing is built for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +21,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -30,7 +34,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-fmad=false", "-Xptxas", "-v")
 
 #: the kernel sources of the port, one shared library each
-SOURCES = ("sophia_update",)
+SOURCES = ("sophia_update", "quantize")
+
+#: runtime dtype codes of the kernels' load/store helpers
+#: (``csrc/dtype_io.cuh``)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
+               torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+
+#: blocks per SM of the grid-stride launches
+BLOCKS_PER_SM = 8
 
 
 @dataclass(frozen=True)
@@ -58,10 +70,25 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    return torch.cuda.get_device_properties(
+        index if index is not None else torch.cuda.current_device()
+    ).multi_processor_count
+
+
+def grid_blocks(work_items: int, device: torch.device) -> int:
+    """Blocks of a grid-stride launch over ``work_items`` blocks' worth
+    of work: enough to fill every SM, never more than the work."""
+    return max(1, min(work_items, sm_count(device.index) * BLOCKS_PER_SM))
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str] = SOURCES) -> Dict[str, BuildInfo]:

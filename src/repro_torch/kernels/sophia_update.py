@@ -11,36 +11,22 @@ entry point (CPU calls count nothing).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.ref import sophia_update_ref
-
-#: runtime dtype codes of the kernel's load/store helpers
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
-               torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
 #: kernel launches per entry point since the last `reset_launches`
 LAUNCHES: Dict[str, int] = {"sophia_update_flat": 0,
                             "sophia_update_batched": 0}
 
-#: blocks per SM of the grid-stride launch
-BLOCKS_PER_SM = 8
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index) -> int:
-    return torch.cuda.get_device_properties(
-        index if index is not None else torch.cuda.current_device()
-    ).multi_processor_count
 
 
 def _kernel_fn():
@@ -91,8 +77,7 @@ def _launch(name, theta, m, h, g, h_hat, do_h, lr, hp, inplace):
         outs = tuple(torch.empty_like(x) for x in (theta, m, h))
     fn, threads = _kernel_fn()
     n = theta.numel()
-    blocks = max(1, min(-(-n // threads),
-                        _sm_count(theta.device.index) * BLOCKS_PER_SM))
+    blocks = build.grid_blocks(-(-n // threads), theta.device)
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     err = fn(*(t.data_ptr() for t in outs),
              *(t.data_ptr() for t in (theta, m, h, g, h_hat)),

@@ -20,13 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import CommConfig as JCommConfig
 from repro.configs.base import FedConfig as JFedConfig
 from repro.core.fed import FedEngine as JFedEngine
 from repro.data import synthetic as jsyn
 from repro.models.small import MLPTask as JMLPTask
 from repro_torch import convert
 from repro_torch.configs.base import (CommConfig, FedConfig, ObsConfig,
-                                      RobustConfig)
+                                      RobustConfig, SchedConfig)
 from repro_torch.core.fed import FedEngine
 from repro_torch.kernels import sophia_update as tk
 from repro_torch.models.small import MLPTask
@@ -145,14 +146,27 @@ def test_round_parity_packed_resident(data):
 
 
 def test_convert_round_trip_exact(data):
+    """A bidir state with EF on both links carries over exactly: params,
+    the Sophia m/h stacks, the uplink EF residuals and the downlink
+    replicas and residuals."""
     key, _, _ = data
+    comm = JCommConfig(compressor="int8", error_feedback=True,
+                       downlink_compressor="int8",
+                       downlink_error_feedback=True,
+                       hessian_compressor="int4", participation=0.5)
     jeng = JFedEngine(JMLPTask(hidden=HIDDEN),
-                      JFedConfig(num_clients=C, local_iters=J))
+                      JFedConfig(num_clients=C, local_iters=J, comm=comm))
     jstate = jeng.init(jax.random.fold_in(key, 3))
     src = jax.tree.map(np.asarray, jstate)
+    rs = np.random.default_rng(0)
+
+    def noisy(a):
+        return rs.standard_normal(a.shape).astype(np.float32)
     src = {**src, "client_opt": src["client_opt"]._replace(
-        m=np.random.default_rng(0).standard_normal(
-            src["client_opt"].m.shape).astype(np.float32))}
+        m=noisy(src["client_opt"].m)),
+        "comm_ef": noisy(src["comm_ef"]),
+        "comm_dn_model": noisy(src["comm_dn_model"]),
+        "comm_dn_ef": noisy(src["comm_dn_ef"])}
     back = convert.state_to_numpy(convert.state_from_numpy(src, "cpu"))
     assert int(back["round"]) == int(src["round"])
     for k, v in src["params"].items():
@@ -162,6 +176,9 @@ def test_convert_round_trip_exact(data):
                                   src["client_opt"].m)
     np.testing.assert_array_equal(back["client_opt"]["h"],
                                   src["client_opt"].h)
+    for k in ("comm_ef", "comm_dn_model", "comm_dn_ef"):
+        assert back[k].dtype == np.float32 and back[k].shape[0] == C
+        np.testing.assert_array_equal(back[k], src[k])
     packed = np.asarray(jeng.pack_state(jstate)["params"])
     again = convert.state_to_numpy(convert.state_from_numpy(
         {"params": packed, "round": 0}, "cpu"))
@@ -172,10 +189,10 @@ OUTSIDE_SLICE = {
     "done": dict(optimizer="done"),
     "fedadam": dict(optimizer="fedadam"),
     "fedyogi": dict(optimizer="fedyogi"),
-    "int8-uplink": dict(comm=CommConfig(compressor="int8")),
-    "partial-participation": dict(comm=CommConfig(participation=0.5)),
-    "downlink-stream": dict(comm=CommConfig(downlink_compressor="int8")),
-    "hessian-stream": dict(comm=CommConfig(hessian_compressor="int8")),
+    "topk-uplink": dict(comm=CommConfig(compressor="topk")),
+    "signsgd-uplink": dict(comm=CommConfig(compressor="signsgd")),
+    "topk-downlink": dict(comm=CommConfig(downlink_compressor="topk")),
+    "dispatch-chunk": dict(sched=SchedConfig(dispatch_chunk=4)),
     "robust-aggregator": dict(robust=RobustConfig(aggregator="trimmed_mean",
                                                   trim_fraction=0.25)),
     "attack": dict(robust=RobustConfig(attack="sign_flip",

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels (the Sophia update and the six quantize
+round-trip entry points) against their plain PyTorch versions, on the
 card.
 
 Every test here needs an NVIDIA card and ``nvcc`` (the kernel is built
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import quantize as tq
+from repro_torch.kernels import ref
 from repro_torch.kernels import sophia_update as tk
 from repro_torch.kernels.ref import sophia_update_ref
 
@@ -115,3 +118,92 @@ def test_card_wrapper_rejects_strided_views(card):
     stack = [x.expand(3, 7, 1000).contiguous() for x in (m, h, g, hh)]
     with pytest.raises(ValueError, match="contiguous"):
         tk.sophia_update_batched(shared, *stack, 1, LR, inplace=True, **HP)
+
+
+QSTORES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+           "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+
+
+def _quant_inputs(device, shape, store, shared, seed=0):
+    """theta, other (start / ref), ef stored in ``store``; fp32 noise and
+    the row scales of the corrected delta.  Every 7th row of theta and
+    other is zero (scale 0); the scales of rows 1 mod 5 are quartered so
+    codes clip at +-qmax."""
+    rs = np.random.default_rng(seed)
+    dt = QSTORES[store]
+    theta = rs.standard_normal(shape)
+    other = rs.standard_normal(shape[-2:] if shared else shape)
+    theta[..., ::7, :] = 0.0
+    other[..., ::7, :] = 0.0
+    ef = 0.01 * rs.standard_normal(shape)
+    ef[..., ::7, :] = 0.0
+    t = [torch.tensor(x, dtype=torch.float32, device=device).to(dt)
+         for x in (theta, other, ef)]
+    f = [x.float() for x in t]
+    scale = torch.amax(((f[0] - f[1]) + f[2]).abs(), -1, keepdim=True) / 7
+    scale[..., 1::5, :] /= 4
+    noise = torch.tensor(rs.uniform(size=shape), dtype=torch.float32,
+                         device=device)
+    return t + [noise, scale]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", list(QSTORES))
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "stacked"])
+def test_quantize_kernels_bitwise_vs_plain(card, store, shared):
+    """The six entry points at a ragged (3, 7, 1000), batched and flat,
+    against the plain versions on the same card."""
+    theta, other, ef, u, s = _quant_inputs(card, (3, 7, 1000), store, shared)
+    flat_other = other if shared else other[1]
+    calls = {
+        "quant_roundtrip_batched": (
+            lambda f: f(theta, u, s, qmax=7), ref.quant_roundtrip_ref),
+        "quant_roundtrip_flat": (
+            lambda f: f(theta[1], u[1], s[1], qmax=7),
+            ref.quant_roundtrip_ref),
+        "uplink_roundtrip_batched": (
+            lambda f: f(theta, other, ef, u, s, qmax=7),
+            ref.uplink_roundtrip_ref),
+        "uplink_roundtrip_flat": (
+            lambda f: f(theta[1], flat_other, ef[1], u[1], s[1], qmax=7),
+            ref.uplink_roundtrip_ref),
+        "broadcast_roundtrip_batched": (
+            lambda f: f(other, theta, ef, u, s, qmax=7),
+            ref.broadcast_roundtrip_ref),
+        "broadcast_roundtrip_flat": (
+            lambda f: f(flat_other, theta[1], ef[1], u[1], s[1], qmax=7),
+            ref.broadcast_roundtrip_ref),
+    }
+    tq.reset_launches()
+    for name, (call, plain) in calls.items():
+        got = call(getattr(tq, name))
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES[name] == 1
+        want = call(lambda *a, qmax: plain(*a, qmax=qmax))
+        _bitwise(got if isinstance(got, tuple) else (got,),
+                 want if isinstance(want, tuple) else (want,))
+
+
+@pytest.mark.cuda
+def test_quantize_kernels_pass_nan_through(card):
+    theta, other, ef, u, s = _quant_inputs(card, (3, 7, 1000), "fp32", True)
+    theta[0, 2, 5] = float("nan")
+    s[1, 3, 0] = float("nan")
+    s[2, 4, 0] = float("inf")
+    got = tq.uplink_roundtrip_batched(theta, other, ef, u, s, qmax=127)
+    _bitwise(got, ref.uplink_roundtrip_ref(theta, other, ef, u, s,
+                                           qmax=127))
+    assert bool(torch.isnan(got[0]).any())
+
+
+@pytest.mark.cuda
+def test_quantize_wrappers_raise_on_card_inputs_they_do_not_take(card):
+    theta, other, ef, u, s = _quant_inputs(card, (3, 7, 1000), "fp32", True)
+    with pytest.raises(TypeError, match="noise"):
+        tq.quant_roundtrip_batched(theta, u.double(), s, qmax=7)
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.uplink_roundtrip_batched(theta, other.expand(3, 7, 1000), ef,
+                                    u, s, qmax=7)
+    with pytest.raises(ValueError, match="devices"):
+        tq.broadcast_roundtrip_flat(other.cpu(), theta[0], ef[0], u[0],
+                                    s[0], qmax=7)
