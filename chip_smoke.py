@@ -10,6 +10,8 @@ round at the paper's full MLP width (hidden 128, 32 clients, J=10,
 tau=10, batch 64, 60,000 synthetic MNIST-shaped images) on the direct
 path and on the compressed comm path (int8 uplink with EF off and on;
 bidirectional int8/int8/int4 at participation 0.5, parallel and
+sequential; top-k and SignSGD with majority vote on the uplink;
+bidirectional SignSGD/top-k/int4 at participation 0.5, parallel and
 sequential), checks small rounds against the same rounds on the CPU,
 and times each kernel with CUDA events.  Every path runs with the launch
 counts set to 0 just before it and read just after.  Any failure ends
@@ -34,7 +36,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.comm import accounting as tacc  # noqa: E402
 from repro_torch.comm import compressors as tcomp  # noqa: E402
+from repro_torch.comm import flat as tflat  # noqa: E402
 from repro_torch.configs import cnn_mnist, mlp_mnist  # noqa: E402
 from repro_torch.configs.base import (COMM_STREAMS, CommConfig,  # noqa: E402
                                       FedConfig)
@@ -70,6 +74,20 @@ SOPHIA_OPS = 17
 #: subtract and add and the residual's subtract; broadcast also the
 #: replica's add)
 QUANT_OPS = {"quant": 6, "uplink": 9, "broadcast": 10}
+#: fp32 operations per coordinate of the biased compressors' kernels
+#: (sign: two compares, copysign, multiply; threshold: abs, compare,
+#: select)
+BIASED_OPS = {"sign": 4, "topk": 3}
+#: the state dtypes the kernels load and store
+STORES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+          torch.float8_e5m2)
+#: top-k's ratio on the main path, as the JAX package's comm benchmark
+#: runs it (benchmarks/run.py)
+TOPK_RATIO = 0.05
+#: words in the device-activity names of the compressors' kernels and
+#: of top-k's selection (torch.topk's sort and select kernels)
+COMM_KERNEL_WORDS = ("roundtrip", "per_client", "topk", "sort", "radix",
+                     "select")
 TIMED_LAUNCHES = 200
 #: timed calls queued at once, and the sleep (GPU clock cycles, about
 #: 50 ms) they queue behind
@@ -89,6 +107,19 @@ SMALL_RTOL, SMALL_ATOL = 1e-4, 1e-5
 SMALL_COMM = dict(compressor="int8", error_feedback=True,
                   downlink_compressor="int8", downlink_error_feedback=True,
                   hessian_compressor="int4", participation=0.5)
+#: the biased bidir phase and small check: SignSGD uplink, top-k
+#: downlink, int4 hessian stream, EF auto (on for both links).  A flip
+#: there moves a coordinate by at most top-k's threshold, or twice
+#: SignSGD's scale.  The small check starts each round on the card from
+#: the CPU's state: SignSGD's mean of S=2 clients has a few distinct
+#: magnitudes, so the next downlink delta is a sea of near-ties at
+#: top-k's threshold, split by the last ulp of theta; a 1e-6 nudge of
+#: the weights moves thousands of coordinates across it in the next
+#: round (measured on the CPU), a property of the configuration that
+#: the check must not compound
+BIASED_BIDIR = dict(compressor="signsgd", downlink_compressor="topk",
+                    hessian_compressor="int4", topk_ratio=TOPK_RATIO,
+                    participation=0.5)
 SMALL_MAX_FLIPS = 16
 STEPS_OF = {"params": ("uplink", "downlink"), "m": ("uplink", "downlink"),
             "h": ("uplink", "downlink", "hessian"),
@@ -105,6 +136,10 @@ REPLACES = {
     "uplink_roundtrip_batched": "src/repro/kernels/quantize.py:305",
     "broadcast_roundtrip_flat": "src/repro/kernels/quantize.py:133",
     "broadcast_roundtrip_batched": "src/repro/kernels/quantize.py:281",
+    "sign_roundtrip_flat": "src/repro/kernels/quantize.py:210",
+    "sign_roundtrip_batched": "src/repro/kernels/quantize.py:335",
+    "topk_threshold_flat": "src/repro/kernels/quantize.py:234",
+    "topk_threshold_batched": "src/repro/kernels/quantize.py:360",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/"
            + ("sophia_update.cu" if name.startswith("sophia") else
@@ -320,8 +355,7 @@ def check_quant_kernels(device):
         ("MLP-128 x 32 fp32 stacked", (N, R, C), torch.float32, False,
          False, 127),
     ]
-    for store in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
-                  torch.float8_e5m2):
+    for store in STORES:
         for shared in (True, False):
             cases.append((f"ragged {str(store)[6:]} "
                           f"{'shared' if shared else 'stacked'}",
@@ -356,6 +390,81 @@ def check_quant_kernels(device):
                                              qmax=127))
     sync()
     print("  shared (R, C) operand == materialised stack, bitwise")
+    return err
+
+
+def biased_inputs(shape, device, seed, store=torch.float32, special=False):
+    """x ``(N, R, C)`` stored in ``store`` and one fp32 scalar per client:
+    its mean |x| (SignSGD's scale, used as the threshold too, so about
+    half of each client survives), rounded to ``store`` so that the 16
+    ties planted per client at +-scalar are exact; the last client's
+    scalar is 0.  ``special`` puts NaN, +-0 and +-inf into every
+    client."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(shape[0], -1)
+    v = torch.tensor(np.abs(flat).mean(-1)).to(store).float().numpy()
+    v[-1] = 0.0
+    for n in range(shape[0]):
+        pos = rs.choice(flat.shape[1], 22, replace=False)
+        flat[n, pos[:16]] = v[n] * np.array([1, -1] * 8, np.float32)
+        if special:
+            flat[n, pos[16:]] = [np.nan, -np.nan, 0.0, -0.0, np.inf,
+                                 -np.inf]
+    return (torch.tensor(x, device=device).to(store),
+            torch.tensor(v, device=device))
+
+
+def biased_calls(x, v, flat_row=1):
+    """entry-point name -> (kernel call, plain call): each batched entry
+    on the whole stack, each flat entry on one client's slice."""
+    r = flat_row
+    return {
+        "sign_roundtrip_batched": (
+            lambda: tq.sign_roundtrip_batched(x, v),
+            lambda: kref.sign_roundtrip_ref(x, v)),
+        "sign_roundtrip_flat": (
+            lambda: tq.sign_roundtrip_flat(x[r], v[r]),
+            lambda: kref.sign_roundtrip_ref(x[r], v[r])),
+        "topk_threshold_batched": (
+            lambda: tq.topk_threshold_batched(x, v),
+            lambda: kref.topk_threshold_ref(x, v)),
+        "topk_threshold_flat": (
+            lambda: tq.topk_threshold_flat(x[r], v[r]),
+            lambda: kref.topk_threshold_ref(x[r], v[r])),
+    }
+
+
+def check_biased_kernels(device):
+    """The sign and top-k threshold entry points against their plain
+    versions on the card, bitwise: at a 32- and a 16-client MLP-128 stack
+    (the flat entries on one client's (116, 1024) slice) and at a ragged
+    (3, 7, 1000) over fp32, bf16, e4m3 and e5m2, with and without NaN,
+    +-0 and +-inf; ties at every client's threshold and one client with
+    scalar 0 in each case."""
+    N, (R, C) = CLIENTS, MLP_PACKED
+    cases = [("MLP-128 x 32 fp32", (N, R, C), torch.float32, False),
+             ("MLP-128 x 16 fp32 NaN/inf", (N // 2, R, C), torch.float32,
+              True)]
+    for store in STORES:
+        for special in (False, True):
+            cases.append((f"ragged {str(store)[6:]}"
+                          + (" NaN/0/inf" if special else ""),
+                          (3, 7, 1000), store, special))
+    err = {}
+    for i, (label, shape, store, special) in enumerate(cases):
+        x, v = biased_inputs(shape, device, SEED + 120 + i, store, special)
+        for name, (kern, plain) in biased_calls(x, v).items():
+            before = tq.LAUNCHES[name]
+            got = kern()
+            sync()
+            if tq.LAUNCHES[name] != before + 1:
+                raise SystemExit(f"kernel check {label}: {name} did not "
+                                 "launch")
+            err[name] = max(err.get(name, 0.0),
+                            same_bits(label, name, got, plain()))
+        print(f"  {label:30s} {shape} all four biased entry points "
+              "bitwise equal")
     return err
 
 
@@ -503,6 +612,24 @@ def main_path(device):
          expect(broadcast_roundtrip_flat=S, sophia_update_flat=S * J,
                 uplink_roundtrip_flat=S, quant_roundtrip_flat=S + 1)),
     ]
+    # the biased compressors, as the JAX package's comm benchmark runs
+    # top-k and SignSGD beside int8
+    phases += [
+        ("uplink-topk", "parallel",
+         dict(compressor="topk", topk_ratio=TOPK_RATIO), R,
+         expect(sophia_update_batched=J * R, topk_threshold_batched=R)),
+        ("uplink-signsgd-majority", "parallel",
+         dict(compressor="signsgd", sign_majority=True), R,
+         expect(sophia_update_batched=J * R, sign_roundtrip_batched=R)),
+        ("bidir-sign-topk-int4", "parallel", BIASED_BIDIR, R,
+         expect(sign_roundtrip_batched=R, topk_threshold_batched=R,
+                quant_roundtrip_batched=R, quant_roundtrip_flat=R,
+                sophia_update_batched=J * R)),
+        ("bidir-sign-topk-int4 sequential", "sequential", BIASED_BIDIR,
+         1,
+         expect(sign_roundtrip_flat=S, topk_threshold_flat=S,
+                quant_roundtrip_flat=S + 1, sophia_update_flat=S * J)),
+    ]
     for label, strategy, comm_kw, rounds, want in phases:
         fed = FedConfig(strategy=strategy, comm=CommConfig(**comm_kw),
                         **base)
@@ -513,7 +640,7 @@ def main_path(device):
             raise SystemExit(f"{label}: fed_sophia local loss did not "
                              f"fall: {losses}")
         print(f"{label}: steady seconds per round {steady[label]}")
-        if label == "bidir-int8":
+        if label in ("bidir-int8", "bidir-sign-topk-int4"):
             profile_round(engine, state, data, device, steady[label])
     return launches, steady
 
@@ -602,88 +729,112 @@ def state_buffers(state) -> dict:
 
 
 class ScaleProbe:
-    """Records the largest row scale each stream's compressor computes
-    while active (a stream whose config view equals another's records
-    into both)."""
+    """Records, per stream, the most a flipped coordinate may move its
+    reconstruction while active: the largest row scale of a quantizer,
+    the largest top-k threshold, twice the largest SignSGD scale (a
+    stream whose config view equals another's records into both)."""
+    PROBED = ((tcomp.StochasticQuant, "scales", 1.0),
+              (tcomp.TopK, "thresholds", 1.0),
+              (tcomp.SignSGD, "scales", 2.0))
 
     def __init__(self, comm):
         self.comm, self.steps = comm, {}
 
     def __enter__(self):
-        self.orig = orig = tcomp.StochasticQuant.scales
-        probe = self
-
-        def scales(comp, flat):
-            out = orig(comp, flat)
-            for name in COMM_STREAMS:
-                if comp.cfg == probe.comm.stream(name):
-                    probe.steps[name] = max(probe.steps.get(name, 0.0),
-                                            float(out.max()))
-            return out
-        tcomp.StochasticQuant.scales = scales
+        self.orig = [getattr(cls, name) for cls, name, _ in self.PROBED]
+        for (cls, name, factor), orig in zip(self.PROBED, self.orig):
+            setattr(cls, name, self._recording(orig, factor))
         return self
 
+    def _recording(self, orig, factor):
+        def wrapped(comp, flat):
+            out = orig(comp, flat)
+            for name in COMM_STREAMS:
+                if comp.cfg == self.comm.stream(name):
+                    self.steps[name] = max(self.steps.get(name, 0.0),
+                                           factor * float(out.max()))
+            return out
+        return wrapped
+
     def __exit__(self, *exc):
-        tcomp.StochasticQuant.scales = self.orig
+        for (cls, name, _), orig in zip(self.PROBED, self.orig):
+            setattr(cls, name, orig)
 
 
 def small_comm_round_check(device):
     """Two small bidir rounds on the card against the same rounds on the
-    CPU: same weights, batches, GNB noise, participants and quantization
+    CPU, int8/int8/int4 with EF on and SignSGD/top-k/int4 with EF auto:
+    same weights, batches, GNB noise, participants and quantization
     noise.  Every coordinate of params, m, h, EF residuals and replicas
     within the small band, except at most SMALL_MAX_FLIPS per buffer,
-    each within one quant step of its streams."""
+    each within one move of its streams (`ScaleProbe`)."""
+    for label, comm_kw, resync in (
+            ("bidir int8, EF on", SMALL_COMM, False),
+            ("bidir sign/topk/int4, EF auto, resynced", BIASED_BIDIR, True)):
+        for strategy in ("parallel", "sequential"):
+            small_comm_rounds(device, label, CommConfig(**comm_kw),
+                              strategy, resync)
+
+
+def small_comm_rounds(device, label, comm, strategy, resync):
+    """Two small rounds of ``comm`` under ``strategy``, card against
+    CPU (`small_comm_round_check`); with ``resync`` each round starts the
+    card from a copy of the CPU's state."""
     s = SMALL
     task, x, y, part, init = small_setup()
-    for strategy in ("parallel", "sequential"):
-        fed = FedConfig(num_clients=s["clients"], local_iters=s["iters"],
-                        tau=s["tau"], lr=0.02, strategy=strategy,
-                        comm=CommConfig(**SMALL_COMM))
-        runs = {str(dev): FedEngine(task, fed, device=dev)
-                for dev in ("cpu", device)}
-        states = {k: e.init_from_params({n: v.to(e.device)
-                                         for n, v in init.items()})
-                  for k, e in runs.items()}
-        flips = []
-        for r in range(s["rounds"]):
-            b = syn.client_batches(gen("cpu", 10 + r), x, y, part,
-                                   s["batch"])
-            cnoise = small_comm_noise(runs["cpu"], states["cpu"], r, s)
-            losses, steps = {}, {}
-            for key, engine in runs.items():
-                dev = engine.device
-                with ScaleProbe(fed.comm) as probe:
-                    states[key], metrics = engine.round(
-                        states[key], {k: v.to(dev) for k, v in b.items()},
-                        gumbel=torch.tensor(small_noise(r, s), device=dev),
-                        comm_noise=cnoise)
-                losses[key] = float(metrics["loss"])
-                for k, v in probe.steps.items():
-                    steps[k] = max(steps.get(k, 0.0), v)
-            np.testing.assert_allclose(
-                losses[str(device)], losses["cpu"], rtol=SMALL_RTOL,
-                atol=SMALL_ATOL, err_msg=f"small comm {strategy}: loss")
-            want = state_buffers(states["cpu"])
-            got = state_buffers(states[str(device)])
-            counts = {}
-            for name, w in want.items():
-                g = got[name]
-                band = SMALL_ATOL + SMALL_RTOL * np.abs(w)
-                diff = np.abs(g - w)
-                out = diff > band
-                step = sum(steps.get(st, 0.0) for st in STEPS_OF[name])
-                counts[name] = int(out.sum())
-                if counts[name] > SMALL_MAX_FLIPS or not np.all(
-                        diff[out] <= step + band[out]):
-                    raise SystemExit(
-                        f"small comm {strategy} round {r}: {name} has "
-                        f"{counts[name]} coordinates outside the band, "
-                        f"largest {float(diff.max())}, step {step}")
-            flips.append(counts)
-        print(f"small comm {strategy} rounds (bidir, EF on, S=2 of 4): card "
-              f"agrees with the CPU within rtol={SMALL_RTOL} "
-              f"atol={SMALL_ATOL} but for coordinates one quant step off "
-              f"(flips per buffer, rounds 1-2): {flips}")
+    fed = FedConfig(num_clients=s["clients"], local_iters=s["iters"],
+                    tau=s["tau"], lr=0.02, strategy=strategy, comm=comm)
+    runs = {str(dev): FedEngine(task, fed, device=dev)
+            for dev in ("cpu", device)}
+    states = {k: e.init_from_params({n: v.to(e.device)
+                                     for n, v in init.items()})
+              for k, e in runs.items()}
+    flips = []
+    for r in range(s["rounds"]):
+        b = syn.client_batches(gen("cpu", 10 + r), x, y, part,
+                               s["batch"])
+        cnoise = small_comm_noise(runs["cpu"], states["cpu"], r, s)
+        if resync:
+            states[str(device)] = convert.state_from_numpy(
+                convert.state_to_numpy(states["cpu"]), device=device)
+        losses, steps = {}, {}
+        for key, engine in runs.items():
+            dev = engine.device
+            with ScaleProbe(fed.comm) as probe:
+                states[key], metrics = engine.round(
+                    states[key], {k: v.to(dev) for k, v in b.items()},
+                    gumbel=torch.tensor(small_noise(r, s), device=dev),
+                    comm_noise=cnoise)
+            losses[key] = float(metrics["loss"])
+            for k, v in probe.steps.items():
+                steps[k] = max(steps.get(k, 0.0), v)
+        want = state_buffers(states["cpu"])
+        got = state_buffers(states[str(device)])
+        counts, bad = {}, []
+        for name, w in want.items():
+            g = got[name]
+            band = SMALL_ATOL + SMALL_RTOL * np.abs(w)
+            diff = np.abs(g - w)
+            out = diff > band
+            step = sum(steps.get(st, 0.0) for st in STEPS_OF[name])
+            counts[name] = int(out.sum())
+            if counts[name] > SMALL_MAX_FLIPS or not np.all(
+                    diff[out] <= step + band[out]):
+                bad.append(f"{name} has {counts[name]} coordinates outside "
+                           f"the band, largest {float(diff.max())}, step "
+                           f"{step}")
+        if bad:
+            raise SystemExit(f"small comm {label} {strategy} round {r}: "
+                             + "; ".join(bad) + f" (all counts {counts})")
+        flips.append(counts)
+        np.testing.assert_allclose(
+            losses[str(device)], losses["cpu"], rtol=SMALL_RTOL,
+            atol=SMALL_ATOL,
+            err_msg=f"small comm {label} {strategy} round {r}: loss")
+    print(f"small comm {strategy} rounds ({label}, S=2 of 4): card "
+          f"agrees with the CPU within rtol={SMALL_RTOL} "
+          f"atol={SMALL_ATOL} but for coordinates one move off "
+          f"(flips per buffer, rounds 1-2): {flips}")
 
 
 # ------------------------------------------------------------------ timing
@@ -728,6 +879,30 @@ def time_ms(fn, launches=TIMED_LAUNCHES, chunk=TIMED_CHUNK,
                              f"enqueue, the sleep covers {sleep_ms} ms")
         total += start.elapsed_time(stop)
     return total / launches
+
+
+def time_blocking_ms(fn, calls=TIMED_CHUNK):
+    """Device milliseconds per call of ``fn``, for a call that may block
+    the host: events bracket each call alone, each from an idle device.
+    Also whether it blocks: one call queued behind the sleep kernel
+    returns only after the sleep when it waits for the device."""
+    fn(0)
+    sync()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    fn(0)
+    waited_ms = (time.perf_counter() - t0) * 1e3
+    sync()
+    total = 0.0
+    for i in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(i)
+        stop.record()
+        sync()
+        total += start.elapsed_time(stop)
+    return total / calls, waited_ms
 
 
 def bound(ins, outs_like, ops_per_coord):
@@ -837,6 +1012,56 @@ def time_kernels(device):
                                                u[i % N], s[i % N], qmax=q),
         [sv, st[0], ef[0], u[0], s[0]], [st[0], st[0]],
         QUANT_OPS["broadcast"])
+    del th, sv, ef, u, s, st
+    out.update(time_biased(device))
+    return out
+
+
+def time_biased(device):
+    """The sign and threshold kernels and their plain versions at the
+    main path's shapes (32 clients; 16 for the bidir phase), and the
+    library reductions that compute their per-client scalars outside
+    them: `TopK.thresholds` (``torch.topk``) and `SignSGD.scales`
+    (``torch.sum``), as ``scalar_ms`` (`time_blocking_ms`: a call that
+    waits for the device cannot be queued behind the sleep)."""
+    N, R, C = (CLIENTS,) + MLP_PACKED
+    x, v = biased_inputs((N, R, C), device, SEED + 97)
+    h = N // 2
+    spec = tflat.flat_spec(MLPTask(hidden=mlp_mnist.HIDDEN).init(
+        gen(device, SEED), device), cols=C)
+    topk = tcomp.TopK(CommConfig(compressor="topk", topk_ratio=TOPK_RATIO),
+                      spec)
+    signs = tcomp.SignSGD(CommConfig(compressor="signsgd"), spec)
+    print(f"top-k keeps k = {topk.k} of {spec.total} coordinates "
+          f"(ratio {TOPK_RATIO}, accounting "
+          f"{tacc.topk_k(topk.cfg, spec.total)})")
+    out = {}
+    for name, kern, plain, ops, scalar in (
+            ("sign_roundtrip", tq.sign_roundtrip_batched,
+             kref.sign_roundtrip_ref, BIASED_OPS["sign"], signs.scales),
+            ("topk_threshold", tq.topk_threshold_batched,
+             kref.topk_threshold_ref, BIASED_OPS["topk"], topk.thresholds)):
+        for n in (N, h):
+            xs, vs = x[:n], v[:n]
+            key = f"{name}_batched" + ("" if n == N else f" (S={n})")
+            t = time_pair(key, lambda i: kern(xs, vs),
+                          lambda i: plain(xs, vs), [xs, vs], [xs], ops)
+            t["scalar_ms"], waited = time_blocking_ms(lambda i: scalar(xs))
+            print(f"{key}: its scalars by {scalar.__qualname__} "
+                  f"{t['scalar_ms']} ms per call; one call behind a "
+                  f"{SLEEP_CYCLES}-cycle sleep returned after {waited} ms")
+            if n == N:
+                out[f"{name}_batched"] = t
+        flat = getattr(tq, f"{name}_flat")
+        t = time_pair(f"{name}_flat", lambda i: flat(x[i % N], v[i % N]),
+                      lambda i: plain(x[i % N], v[i % N]), [x[0], v[0]],
+                      [x[0]], ops)
+        t["scalar_ms"], waited = time_blocking_ms(
+            lambda i: scalar(x[i % N]))
+        print(f"{name}_flat: its scalar by {scalar.__qualname__} "
+              f"{t['scalar_ms']} ms per call; one call behind the sleep "
+              f"returned after {waited} ms")
+        out[f"{name}_flat"] = t
     return out
 
 
@@ -870,9 +1095,15 @@ def profile_round(engine, state, data, device, steady_s):
           f"{busy_us} us; wall {wall * 1e6} us under the profiler, "
           f"busy share of the unprofiled steady round "
           f"{busy_us / (steady_s * 1e6)}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (t, n) in top:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (t, n) in ranked[:8]:
         print(f"  {t:10.1f} us  {n:5d}x  {name[:90]}")
+    # the compressors' kernels and top-k's selection, wherever they rank
+    comm = [(rank, name, t, n) for rank, (name, (t, n)) in enumerate(ranked)
+            if any(w in name.lower() for w in COMM_KERNEL_WORDS)]
+    for rank, name, t, n in comm:
+        print(f"  comm stage, rank {rank + 1}: {t:10.1f} us  {n:5d}x  "
+              f"{name[:80]}")
 
 
 def main() -> None:
@@ -903,6 +1134,7 @@ def main() -> None:
     print("kernels against their plain versions on the card:")
     err = check_kernels(device)
     err.update(check_quant_kernels(device))
+    err.update(check_biased_kernels(device))
 
     small_round_check(device)
     small_comm_round_check(device)
@@ -919,12 +1151,13 @@ def main() -> None:
             "max_abs_err": err[name], "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "host_ms": t["host_ms"],
+            "host_ms": t["host_ms"], "scalar_ms": t.get("scalar_ms"),
             "shape": t["shape"], "bitwise_vs_plain": True})
     print("library_ms: none; no single PyTorch call computes the Sophia "
           "update or a stochastic-rounding quantize round-trip "
           "(fake_quantize_per_channel_affine rounds to nearest, without "
-          "noise)")
+          "noise), nor SignSGD's round-trip (torch.sign gives 0 for NaN "
+          "and +0 for -0) or top-k's threshold (a compare and a select)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,3 @@
-"""Communication layer of the port: the flat wire layout and the direct
-path's byte accounting (compressors, downlink and headers come with the
-comm slice)."""
+"""Communication layer of the port: the flat wire layout and headers
+(`flat`), the stream compressors (`compressors`), the downlink replicas
+(`downlink`) and the exact byte accounting (`accounting`)."""

@@ -10,16 +10,16 @@ reconstruction`` plus the engine's entry points: ``roundtrip``
 (decode(encode(x))), ``encode_delta`` (the whole uplink chain over
 wire-layout state: delta against the received model, EF correction,
 round-trip, new residual) and their ``*_batched`` forms over ``(N, rows,
-cols)`` client stacks.  `StochasticQuant` runs them through the kernels
-of `repro_torch.kernels.quantize` (the kernel on the card, its plain
-version on the CPU).  ``serialize`` renders a payload to its canonical
-little-endian wire bytes, the JAX package's layout byte for byte.
+cols)`` client stacks.  `StochasticQuant`, `TopK` and `SignSGD` run
+their round-trips through the kernels of `repro_torch.kernels.quantize`
+(the kernel on the card, its plain version on the CPU).  ``serialize``
+renders a payload to its canonical little-endian wire bytes, the JAX
+package's layout byte for byte.
 
 Randomness (the RNG seam): where the JAX package takes a key, these
 take the drawn U[0, 1) noise ``u`` itself (fp32, the buffer's shape),
-which the engine draws from a `torch.Generator` or takes injected.
-
-TopK and SignSGD are not ported yet: `make_compressor` raises for them.
+which the engine draws from a `torch.Generator` or takes injected.  Only
+`StochasticQuant` reads it; the others take ``u=None``.
 """
 from __future__ import annotations
 
@@ -29,10 +29,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm import accounting
 from repro_torch.comm import flat as cflat
 from repro_torch.comm.flat import FlatSpec
 from repro_torch.configs.base import CommConfig
 from repro_torch.kernels import quantize as kq
+from repro_torch.kernels.ref import sign
 
 Payload = Dict[str, torch.Tensor]
 
@@ -96,8 +98,9 @@ class Compressor:
         return x[: self.spec.total].tobytes()
 
     def stat(self, payload: Payload) -> torch.Tensor:
-        """Scalar the server aggregates beside the decoded delta (0 for
-        every compressor of this slice)."""
+        """Scalar the server aggregates beside the decoded delta: 0, but
+        for `SignSGD`'s scale (its majority vote needs the mean client
+        scale)."""
         return _zero_stats(next(iter(payload.values())))
 
     # -- engine entry points --------------------------------------------
@@ -210,16 +213,121 @@ class StochasticQuant(Compressor):
         return xhat, _zero_stats(xhat, theta.shape[:1]), resid
 
 
+@dataclasses.dataclass(frozen=True)
+class TopK(Compressor):
+    """Magnitude top-k sparsification (biased: "auto" gives it EF).
+
+    Wire format: (int32 index, fp32 value) per surviving coordinate,
+    k = ceil(topk_ratio * n_params), capped at the true element count.
+    ``encode`` keeps exactly k coordinates, ties broken by the lowest
+    index first (as ``lax.top_k``); the round-trips run the threshold
+    kernel, which keeps every coordinate whose magnitude reaches the
+    k-th largest, all ties at it included, as the JAX package's kernel
+    route does."""
+
+    @property
+    def k(self) -> int:
+        return min(accounting.topk_k(self.cfg, self.spec.total),
+                   self.spec.total)
+
+    def encode(self, u, flat) -> Payload:
+        del u
+        v = flat.reshape(-1)
+        # a stable descending sort: equal magnitudes keep index order
+        # (torch.topk does not promise any order among ties)
+        idx = torch.sort(v.abs(), descending=True, stable=True).indices
+        idx = idx[: self.k]
+        return {"idx": idx.to(torch.int32), "val": v[idx].to(torch.float32)}
+
+    def decode(self, payload: Payload) -> torch.Tensor:
+        val = payload["val"]
+        flat = torch.zeros(self.spec.padded, dtype=torch.float32,
+                           device=val.device)
+        flat[payload["idx"].long()] = val
+        return flat.reshape(self.spec.rows, self.spec.cols)
+
+    def header(self) -> cflat.Header:
+        return dataclasses.replace(super().header(), aux=self.k)
+
+    def _body(self, payload: Payload) -> bytes:
+        idx = payload["idx"].detach().cpu().numpy().astype("<i4")
+        val = payload["val"].detach().cpu().numpy().astype("<f4")
+        return idx.tobytes() + val.tobytes()
+
+    def thresholds(self, flat) -> torch.Tensor:
+        """The k-th largest magnitude of each ``(rows, cols)`` buffer of
+        ``flat`` (pad tail included): 0-dim, or ``(N,)`` for a stack.
+        Its value does not depend on the order of ties."""
+        mags = flat.reshape(flat.shape[:-2] + (-1,)).abs()
+        vals = torch.topk(mags, self.k, dim=-1, sorted=True).values
+        return vals[..., -1].contiguous()
+
+    def roundtrip(self, u, flat):
+        xhat = kq.topk_threshold_flat(flat, self.thresholds(flat))
+        return xhat, _zero_stats(xhat)
+
+    def roundtrip_batched(self, u, flat):
+        xhat = kq.topk_threshold_batched(flat, self.thresholds(flat))
+        return xhat, _zero_stats(xhat, flat.shape[:1])
+
+
+@dataclasses.dataclass(frozen=True)
+class SignSGD(Compressor):
+    """1-bit sign compression with one fp32 scale, mean |x| (EF-signSGD;
+    biased: "auto" gives it EF).  With ``sign_majority`` the server takes
+    the sign of the scale-weighted client vote and rescales it by the
+    mean client scale."""
+
+    def scales(self, flat) -> torch.Tensor:
+        """mean |x| of each ``(rows, cols)`` buffer of ``flat`` over the
+        true coordinates: 0-dim, or ``(N,)`` for a stack."""
+        return torch.sum(torch.abs(flat), dim=(-2, -1)) / self.spec.total
+
+    def encode(self, u, flat) -> Payload:
+        del u
+        return {"sign": sign(flat).to(torch.int8),
+                "scale": self.scales(flat)}
+
+    def decode(self, payload: Payload) -> torch.Tensor:
+        return (payload["sign"].to(torch.float32)
+                * payload["scale"].to(torch.float32))
+
+    def stat(self, payload: Payload) -> torch.Tensor:
+        return payload["scale"].to(torch.float32)
+
+    def _body(self, payload: Payload) -> bytes:
+        # [packbits(x > 0), MSB-first][fp32 scale]; the bit cannot carry
+        # sign(0) = 0, so an exact zero decodes as -scale on a real link
+        # (the in-graph round-trip keeps it at 0)
+        s = payload["sign"].detach().cpu().numpy().astype(np.int8)
+        bits = np.packbits(s.reshape(-1)[: self.spec.total] > 0).tobytes()
+        scale = payload["scale"].detach().cpu().numpy().astype("<f4")
+        return bits + scale.reshape(1).tobytes()
+
+    def roundtrip(self, u, flat):
+        scale = self.scales(flat)
+        return kq.sign_roundtrip_flat(flat, scale), scale
+
+    def roundtrip_batched(self, u, flat):
+        scale = self.scales(flat)
+        return kq.sign_roundtrip_batched(flat, scale), scale
+
+    def server_combine(self, agg, wstat):
+        if not self.cfg.sign_majority:
+            return agg
+        return wstat * sign(agg)
+
+
 def make_compressor(comm: CommConfig, spec: FlatSpec) -> Compressor:
     c = comm.compressor
     if c == "identity":
         return Compressor(comm, spec)
     if c in ("int8", "int4"):
         return StochasticQuant(comm, spec, bits=int(c[3:]))
-    if c in BIASED:
-        raise NotImplementedError(
-            f"compressor {c!r} is not ported yet (ROADMAP.md, queue 1: "
-            "'TopK and SignSGD')")
+    if c == "topk":
+        return TopK(comm, spec)
+    if c == "signsgd":
+        return SignSGD(comm, spec)
     raise ValueError(f"unknown compressor {c!r}")
 
 

@@ -50,40 +50,43 @@ def init_state(comm: CommConfig, spec: FlatSpec, packed_params: torch.Tensor,
     return state
 
 
-def _quant(comp: Compressor) -> StochasticQuant:
-    if not isinstance(comp, StochasticQuant):
-        raise NotImplementedError(
-            f"downlink compressor {comp.cfg.compressor!r} is not ported "
-            "yet (ROADMAP.md, queue 1: 'TopK and SignSGD')")
-    return comp
-
-
-def broadcast(comp: Compressor, u: torch.Tensor, packed_theta: torch.Tensor,
-              model_row: torch.Tensor, ef_row: Optional[torch.Tensor]
+def broadcast(comp: Compressor, u: Optional[torch.Tensor],
+              packed_theta: torch.Tensor, model_row: torch.Tensor,
+              ef_row: Optional[torch.Tensor]
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One client's broadcast: encodes ``theta - theta_i^rx`` (+ EF),
     applies the reconstruction to the client's replica, and returns
     ``(new_model_row, new_ef_row)`` (``new_ef_row`` None when EF is off).
-    One fused kernel pass after the row-scale reduction."""
-    comp = _quant(comp)
-    ef = torch.zeros_like(model_row) if ef_row is None else ef_row
-    new_model, resid = kq.broadcast_roundtrip_flat(
-        packed_theta, model_row, ef, u,
-        comp.scales(packed_theta - model_row + ef), qmax=comp.qmax)
-    return new_model, (None if ef_row is None else resid)
+    A `StochasticQuant` stream is one fused kernel pass after the
+    row-scale reduction; any other compressor encodes the delta as the
+    uplink does (`Compressor.encode_delta`; ``u`` None: only the
+    quantizers read noise)."""
+    if isinstance(comp, StochasticQuant):
+        ef = torch.zeros_like(model_row) if ef_row is None else ef_row
+        new_model, resid = kq.broadcast_roundtrip_flat(
+            packed_theta, model_row, ef, u,
+            comp.scales(packed_theta - model_row + ef), qmax=comp.qmax)
+        return new_model, (None if ef_row is None else resid)
+    xhat, _, new_ef = comp.encode_delta(u, packed_theta, model_row, ef_row)
+    return model_row + xhat, new_ef
 
 
-def broadcast_batched(comp: Compressor, u: torch.Tensor,
+def broadcast_batched(comp: Compressor, u: Optional[torch.Tensor],
                       packed_theta: torch.Tensor, model_rows: torch.Tensor,
                       ef_rows: Optional[torch.Tensor]
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`broadcast` for the whole cohort in one launch: ``model_rows`` /
     ``ef_rows`` are ``(N, rows, cols)`` stacks, ``u`` carries the client
     axis, and ``packed_theta`` stays the one ``(rows, cols)`` server
-    model, read by every client without being copied."""
-    comp = _quant(comp)
-    ef = torch.zeros_like(model_rows) if ef_rows is None else ef_rows
-    new_models, resid = kq.broadcast_roundtrip_batched(
-        packed_theta, model_rows, ef, u,
-        comp.scales(packed_theta - model_rows + ef), qmax=comp.qmax)
-    return new_models, (None if ef_rows is None else resid)
+    model, read by every client without being copied.  Any other
+    compressor than `StochasticQuant` runs `encode_delta_batched` (one
+    ``roundtrip_batched`` launch over the delta stack)."""
+    if isinstance(comp, StochasticQuant):
+        ef = torch.zeros_like(model_rows) if ef_rows is None else ef_rows
+        new_models, resid = kq.broadcast_roundtrip_batched(
+            packed_theta, model_rows, ef, u,
+            comp.scales(packed_theta - model_rows + ef), qmax=comp.qmax)
+        return new_models, (None if ef_rows is None else resid)
+    xhat, _, new_efs = comp.encode_delta_batched(u, packed_theta,
+                                                 model_rows, ef_rows)
+    return model_rows + xhat, new_efs

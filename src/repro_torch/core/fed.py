@@ -91,10 +91,6 @@ def _check_slice(fed: FedConfig) -> None:
         c = comm.stream(stream).compressor
         if c not in _COMPRESSORS:
             raise ValueError(f"unknown {stream} compressor {c!r}")
-        if c in BIASED:
-            raise NotImplementedError(
-                f"the {c!r} compressor ({stream} stream) is "
-                + _ROADMAP.format("'TopK and SignSGD'"))
     if not 0.0 < comm.participation <= 1.0:
         raise ValueError(f"participation={comm.participation} must be in "
                          "(0, 1]")
@@ -408,16 +404,17 @@ class FedEngine:
         """``noise(stream, clients)`` -> U[0, 1) noise of ``stream`` for
         ``clients`` (``slice(None)`` for the cohort, or one position);
         ``noise("server_hessian", None)`` is the server's draw.  None for
-        a stream that needs no noise."""
+        a stream that needs no noise: only a `StochasticQuant` stream
+        draws (or requires injected) noise, as in the JAX package."""
         C = self.fed.num_clients
         S = C if ids is None else int(ids.shape[0])
         shapes = {}
-        if isinstance(rt.comp, StochasticQuant):
-            shapes["uplink"] = (rt.spec.rows, rt.spec.cols)
-        if rt.dn_on:
-            shapes["downlink"] = (rt.spec_dn.rows, rt.spec_dn.cols)
-        if rt.h_on:
-            shapes["hessian"] = (rt.spec_h.rows, rt.spec_h.cols)
+        for stream, comp, spec in (("uplink", rt.comp, rt.spec),
+                                   ("downlink", rt.comp_dn, rt.spec_dn),
+                                   ("hessian", rt.comp_h, rt.spec_h)):
+            if isinstance(comp, StochasticQuant):
+                shapes[stream] = (spec.rows, spec.cols)
+        if "hessian" in shapes:
             shapes["server_hessian"] = shapes["hessian"]
         if comm_noise is not None:
             given = {}

@@ -10,11 +10,11 @@ at first use (`build`).
 each with whether the port has it yet.
 """
 KERNELS = {
-    "quant_roundtrip": False,
-    "broadcast_roundtrip": False,
-    "uplink_roundtrip": False,
-    "sign_roundtrip": False,
-    "topk_threshold": False,
+    "quant_roundtrip": True,
+    "broadcast_roundtrip": True,
+    "uplink_roundtrip": True,
+    "sign_roundtrip": True,
+    "topk_threshold": True,
     "sophia_update": True,
     "stale_accum": False,
     "robust_agg": False,

@@ -1,5 +1,5 @@
-// Stochastic quantize -> dequantize round-trips for Hopper (sm_90a), with
-// a plain C interface.
+// The compressors' round-trip kernels for Hopper (sm_90a), with a plain C
+// interface.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/quantize.py:
 //   quant_roundtrip_kernel     <- _quant_kernel     (quant_roundtrip_flat,
@@ -8,7 +8,13 @@
 //                                                    uplink_roundtrip_batched)
 //   broadcast_roundtrip_kernel <- _broadcast_kernel (broadcast_roundtrip_flat,
 //                                                    broadcast_roundtrip_batched)
-// Per coordinate, with s the row's scale and u the streamed U[0,1) noise:
+//   per_client_kernel<SignOp>   <- _sign_kernel, _sign_kernel_batched
+//     (sign_roundtrip_flat, sign_roundtrip_batched)
+//   per_client_kernel<ThreshOp> <- _thresh_kernel, _thresh_kernel_batched
+//     (topk_threshold_flat, topk_threshold_batched)
+//
+// The stochastic quantizers (int8/int4), per coordinate, with s the row's
+// scale and u the streamed U[0,1) noise:
 //
 //   quant:      out = clip(floor(x / safe + u), -qmax, qmax) * s,
 //               safe = s > 0 ? s : 1
@@ -29,6 +35,20 @@
 // model, broadcast's server `theta`) is read at row % R, never
 // materialised per client.  Vectorised 16-byte loads, in-kernel Philox
 // noise and a fused per-row max are later work.
+//
+// The biased compressors, one fp32 scalar v per client (the flat entry is
+// one client), computed outside the kernel as the JAX package does:
+//
+//   sign:       out = v * sign(x), sign as jnp.sign: NaN and +-0 pass
+//               through, else copysign(1, x)         (v = mean |x|)
+//   threshold:  out = |x| >= v ? x : 0               (v = the k-th largest
+//               |x|; NaN compares false and becomes 0, -0 is kept)
+//
+// Bytes bound these too (one compare or multiply per coordinate, one load
+// and one store).  One grid-stride elementwise pass over chunks of
+// kThreads elements that never straddle two clients: a chunk finds its
+// client with one division, and every thread of it reads the same scalar
+// (one broadcast load).
 //
 // Bits: built with -fmad=false and IEEE division, so each kernel is
 // bitwise the op-by-op PyTorch version (kernels/ref.py) on the card.  The
@@ -116,6 +136,49 @@ __global__ void __launch_bounds__(kThreads) broadcast_roundtrip_kernel(
   }
 }
 
+struct SignOp {
+  __device__ __forceinline__ float operator()(float x, float v) const {
+    const float sg = (x == 0.0f || x != x) ? x : copysignf(1.0f, x);
+    return v * sg;
+  }
+};
+
+struct ThreshOp {
+  __device__ __forceinline__ float operator()(float x, float v) const {
+    return fabsf(x) >= v ? x : 0.0f;
+  }
+};
+
+// `x` is `clients` contiguous runs of `per_client` elements; run n uses
+// scalar[n].  Work item c is chunk c % chunks_per_client of client
+// c / chunks_per_client.
+template <class Op>
+__global__ void __launch_bounds__(kThreads) per_client_kernel(
+    void* out, const void* x, const float* __restrict__ scalar, int c_x,
+    int64_t per_client, int64_t chunks_per_client, int64_t chunks, Op op) {
+  for (int64_t c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const int64_t client = c / chunks_per_client;
+    const int64_t j =
+        (c - client * chunks_per_client) * kThreads + threadIdx.x;
+    if (j < per_client) {
+      const int64_t i = client * per_client + j;
+      from_f32(out, i, c_x, op(to_f32(x, i, c_x), scalar[client]));
+    }
+  }
+}
+
+template <class Op>
+int per_client_launch(void* out, const void* x, const float* scalar,
+                      int c_x, int64_t clients, int64_t per_client,
+                      int blocks, void* stream) {
+  if (clients <= 0 || per_client <= 0) return static_cast<int>(cudaSuccess);
+  const int64_t cpc = (per_client + kThreads - 1) / kThreads;
+  per_client_kernel<Op><<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      out, x, scalar, c_x, per_client, cpc, clients * cpc, Op());
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each launcher runs on `stream` (PyTorch's current stream), allocates
@@ -156,4 +219,23 @@ extern "C" int broadcast_roundtrip_launch(
       model_out, resid_out, theta, ref, ef, u, scale, c_theta, c_ref, c_ef,
       rows, cols, theta_rows, qmax);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The biased compressors: `clients` runs of `per_client` elements (1 run
+// for a flat entry), scalar[n] the scale or threshold of run n.  The grid
+// strides over clients * ceil(per_client / 256) chunks.
+extern "C" int sign_roundtrip_launch(void* out, const void* x,
+                                     const float* scale, int c_x,
+                                     int64_t clients, int64_t per_client,
+                                     int blocks, void* stream) {
+  return per_client_launch<SignOp>(out, x, scale, c_x, clients, per_client,
+                                   blocks, stream);
+}
+
+extern "C" int topk_threshold_launch(void* out, const void* x,
+                                     const float* thr, int c_x,
+                                     int64_t clients, int64_t per_client,
+                                     int blocks, void* stream) {
+  return per_client_launch<ThreshOp>(out, x, thr, c_x, clients, per_client,
+                                     blocks, stream);
 }

@@ -1,13 +1,17 @@
-"""Stochastic quantize -> dequantize round-trips: wrappers around the
-CUDA kernels of ``csrc/quantize.cu`` (the port of the JAX package's
-Pallas ``kernels/quantize.py``: ``_quant_kernel``, ``_uplink_kernel``,
-``_broadcast_kernel``).
+"""The compressors' round-trips: wrappers around the CUDA kernels of
+``csrc/quantize.cu`` (the port of the JAX package's Pallas
+``kernels/quantize.py``: ``_quant_kernel``, ``_uplink_kernel``,
+``_broadcast_kernel``, ``_sign_kernel``, ``_thresh_kernel`` and their
+batched forms).
 
-One scale per packed row; noise ``u`` ~ U[0, 1) and the scales are fp32
-and computed by the caller (as the JAX package computes them outside its
-kernels).  State operands may be fp32, bf16, e4m3 or e5m2; compute is
-fp32.  Each ``*_batched`` entry takes ``(N, R, C)`` stacks with ``(N,
-R, 1)`` scales, and is bitwise the looped ``*_flat`` entry.
+The stochastic quantizers take one scale per packed row; noise ``u`` ~
+U[0, 1) and the scales are fp32 and computed by the caller (as the JAX
+package computes them outside its kernels).  The biased compressors'
+entries (sign, top-k threshold) take one fp32 scalar per client, also
+computed by the caller.  State operands may be fp32, bf16, e4m3 or e5m2;
+compute is fp32.  Each ``*_batched`` entry takes ``(N, R, C)`` stacks
+with ``(N, R, 1)`` row scales or ``(N,)`` client scalars, and is bitwise
+the looped ``*_flat`` entry.
 
 For CUDA tensors each entry point validates its inputs and launches its
 kernel on PyTorch's current stream, or raises.  For CPU tensors it runs
@@ -26,13 +30,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.ref import (broadcast_roundtrip_ref,
                                      quant_roundtrip_ref,
+                                     sign_roundtrip_ref,
+                                     topk_threshold_ref,
                                      uplink_roundtrip_ref)
 
 #: kernel launches per entry point since the last `reset_launches`
 LAUNCHES: Dict[str, int] = {
     "quant_roundtrip_flat": 0, "quant_roundtrip_batched": 0,
     "uplink_roundtrip_flat": 0, "uplink_roundtrip_batched": 0,
-    "broadcast_roundtrip_flat": 0, "broadcast_roundtrip_batched": 0}
+    "broadcast_roundtrip_flat": 0, "broadcast_roundtrip_batched": 0,
+    "sign_roundtrip_flat": 0, "sign_roundtrip_batched": 0,
+    "topk_threshold_flat": 0, "topk_threshold_batched": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -43,7 +51,11 @@ _ARGTYPES = {
                                + [_I64, _I, _I64, _F, _I, _P],
     "broadcast_roundtrip_launch": [_P] * 7 + [_I] * 3
                                   + [_I64, _I, _I64, _F, _I, _P],
+    "sign_roundtrip_launch": [_P] * 3 + [_I, _I64, _I64, _I, _P],
+    "topk_threshold_launch": [_P] * 3 + [_I, _I64, _I64, _I, _P],
 }
+#: elements per work item of the per-client kernels (one block's threads)
+CHUNK = 256
 
 
 def reset_launches() -> None:
@@ -210,3 +222,75 @@ def broadcast_roundtrip_batched(theta, ref, ef, noise, scale, *,
     return _fused("broadcast_roundtrip_batched",
                   "broadcast_roundtrip_launch", broadcast_roundtrip_ref, 3,
                   theta, ref, ef, noise, scale, qmax, "theta")
+
+
+def _per_client(name, launcher, ref_fn, ndim, x, v, label):
+    """The biased compressors' entries: ``x`` ``ndim``-D in a kernel
+    dtype, ``v`` its fp32 per-client scalar tensor (``()`` for a flat
+    ``x``, ``(N,)`` for a stack), both contiguous, on one device."""
+    if not isinstance(v, torch.Tensor):
+        raise TypeError(f"{name}: {label} must be a tensor, got "
+                        f"{type(v).__name__}")
+    if x.ndim != ndim:
+        raise ValueError(f"{name}: x must be {ndim}D, got shape "
+                         f"{tuple(x.shape)}")
+    want = tuple(x.shape[:1]) if ndim == 3 else ()
+    if tuple(v.shape) != want:
+        raise ValueError(f"{name}: {label} has shape {tuple(v.shape)}, "
+                         f"want {want}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: x has unsupported dtype {x.dtype} (want "
+                        f"one of {tuple(DTYPE_CODES)})")
+    if v.dtype != torch.float32:
+        raise TypeError(f"{name}: {label} has dtype {v.dtype}, want "
+                        "torch.float32")
+    for lab, t in (("x", x), (label, v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {lab} is not contiguous; "
+                             "materialise it first (.contiguous())")
+    if x.device != v.device:
+        raise ValueError(f"{name}: inputs on several devices, {x.device} "
+                         f"and {v.device}")
+    if x.device.type == "cpu":
+        return ref_fn(x, v)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    out = torch.empty_like(x)
+    clients = x.shape[0] if ndim == 3 else 1
+    per_client = x.numel() // clients if clients else 0
+    chunks = clients * -(-per_client // CHUNK)
+    _check(name, _kernel_fn(launcher)(
+        out.data_ptr(), x.data_ptr(), v.data_ptr(), DTYPE_CODES[x.dtype],
+        clients, per_client, build.grid_blocks(chunks, x.device),
+        torch.cuda.current_stream(x.device).cuda_stream))
+    return out
+
+
+def sign_roundtrip_flat(x, scale):
+    """SignSGD's round-trip of one ``(R, C)`` buffer: ``scale * sign(x)``
+    (``jnp.sign``: NaN and +-0 pass through) in x's dtype; ``scale``: the
+    0-dim fp32 scale."""
+    return _per_client("sign_roundtrip_flat", "sign_roundtrip_launch",
+                       sign_roundtrip_ref, 2, x, scale, "scale")
+
+
+def sign_roundtrip_batched(x, scale):
+    """`sign_roundtrip_flat` over an ``(N, R, C)`` stack in one launch;
+    scale: ``(N,)``."""
+    return _per_client("sign_roundtrip_batched", "sign_roundtrip_launch",
+                       sign_roundtrip_ref, 3, x, scale, "scale")
+
+
+def topk_threshold_flat(x, thr):
+    """Top-k's magnitude sparsifier of one ``(R, C)`` buffer: x where
+    ``|x| >= thr`` (thr: the 0-dim fp32 k-th largest magnitude), 0
+    elsewhere, in x's dtype."""
+    return _per_client("topk_threshold_flat", "topk_threshold_launch",
+                       topk_threshold_ref, 2, x, thr, "thr")
+
+
+def topk_threshold_batched(x, thr):
+    """`topk_threshold_flat` over an ``(N, R, C)`` stack in one launch;
+    thr: ``(N,)``."""
+    return _per_client("topk_threshold_batched", "topk_threshold_launch",
+                       topk_threshold_ref, 3, x, thr, "thr")

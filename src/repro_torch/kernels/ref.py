@@ -66,3 +66,31 @@ def broadcast_roundtrip_ref(theta, ref, ef, noise, scale, *, qmax):
     d = (theta.to(torch.float32) - r) + ef.to(torch.float32)
     xhat = quant_roundtrip_ref(d, noise, scale, qmax=qmax)
     return (r + xhat).to(theta.dtype), (d - xhat).to(theta.dtype)
+
+
+def _per_client(s, x):
+    """Align a scalar (2D launch) or ``(N,)`` per-client (batched
+    launch) fp32 scale against ``x`` for broadcasting."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=x.device)
+    return s.reshape(s.shape + (1,) * (x.ndim - s.ndim))
+
+
+def sign(x):
+    """``jnp.sign``'s semantics: NaN and +-0 pass through as they are
+    (``torch.sign`` gives 0 for NaN and +0 for -0), else +-1."""
+    return torch.where((x == 0) | torch.isnan(x), x,
+                       torch.copysign(torch.ones_like(x), x))
+
+
+def sign_roundtrip_ref(x, scale):
+    """``scale * sign(x)`` in x's dtype; ``scale`` a scalar, or ``(N,)``
+    per client of a ``(N, R, C)`` stack."""
+    return (_per_client(scale, x) * sign(x.to(torch.float32))).to(x.dtype)
+
+
+def topk_threshold_ref(x, thr):
+    """Magnitude sparsifier in x's dtype: the fp32 upcast of x where
+    ``|x| >= thr``, 0 elsewhere (NaN compares false and becomes 0);
+    ``thr`` a scalar, or ``(N,)`` per client."""
+    xf = x.to(torch.float32)
+    return torch.where(xf.abs() >= _per_client(thr, x), xf, 0.0).to(x.dtype)

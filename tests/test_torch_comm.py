@@ -42,6 +42,10 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "wire_format.json")
 QUANT_BLOCK = 128
 ENCODE_KEY = 99
+#: SignSGD's scale, sum|x| / n, against the JAX package's: the sums
+#: add in different orders (measured on the golden input: 3 ulps,
+#: 2.2e-7 relative)
+SCALE_RTOL = 1e-6
 COMPRESSORS = ("identity", "int8", "int4", "topk", "signsgd")
 
 
@@ -156,7 +160,13 @@ GOLDEN_CASES = {
     "uplink/identity": ("uplink", dict(compressor="identity"), False),
     "uplink/int8": ("uplink", dict(compressor="int8"), False),
     "uplink/int4": ("uplink", dict(compressor="int4"), False),
+    "uplink/topk": ("uplink", dict(compressor="topk"), False),
+    "uplink/signsgd": ("uplink", dict(compressor="signsgd"), False),
     "downlink/int8": ("downlink", dict(downlink_compressor="int8"), False),
+    "downlink/topk": ("downlink", dict(downlink_compressor="topk"), False),
+    "downlink/topk-coarse": ("downlink", dict(downlink_compressor="topk",
+                                              downlink_topk_ratio=0.05),
+                             False),
     "hessian/int8": ("hessian", dict(hessian_compressor="int8"), True),
     "hessian/int4": ("hessian", dict(hessian_compressor="int4"), True),
     "hessian/int4-coarse": ("hessian", dict(
@@ -181,7 +191,13 @@ def test_payload_matches_golden(name):
     package reproduces the fixture (tests/test_wire_golden.py): the
     fixture's input and noise come from ``jax.random.normal`` /
     ``uniform``, whose values depend on the jax version and its
-    ``jax_threefry_partitionable`` default."""
+    ``jax_threefry_partitionable`` default.
+
+    signsgd's last 4 bytes, its fp32 scale ``sum|x| / n``, are held
+    within ``SCALE_RTOL`` instead: a sum is not bitwise across
+    frameworks (XLA and torch add in different orders), so its bytes
+    match only where the orders happen to round alike.  Its header and
+    sign bits are byte for byte."""
     stream, kw, square = GOLDEN_CASES[name]
     kw = dict(quant_block=QUANT_BLOCK, topk_ratio=0.02, **kw)
     comm, jcomm = CommConfig(**kw), JCommConfig(**kw)
@@ -201,7 +217,14 @@ def test_payload_matches_golden(name):
     comp = tmake(comm, stream, spec)
     raw = comp.serialize(comp.encode(u, flat))
     jcomp = jmake(jcomm, stream, jspec)
-    assert raw == jcomp.serialize(jcomp.encode(key, jflat_buf))
+    want = jcomp.serialize(jcomp.encode(key, jflat_buf))
+    if view.compressor == "signsgd":
+        assert raw[:-4] == want[:-4] and len(raw) == len(want)
+        np.testing.assert_allclose(np.frombuffer(raw[-4:], "<f4"),
+                                   np.frombuffer(want[-4:], "<f4"),
+                                   rtol=SCALE_RTOL, atol=0)
+    else:
+        assert raw == want
     with open(GOLDEN) as f:
         golden = json.load(f)["payloads"][name]
     assert tflat.Header.unpack(raw) == comp.header()
@@ -329,3 +352,188 @@ def test_wire_headers_and_init_state_match_jax():
     for k in convert.COMM_KEYS:
         np.testing.assert_array_equal(got[k], want[k])
     assert not teng.uses_direct_path()
+
+
+# ------------------------------------------------- the biased compressors
+def _biased_pair(comp, rows, cols, use_pallas=False, **kw):
+    jspec, tspec = _spec_pair(rows, cols)
+    kw = dict(compressor=comp, quant_block=cols, **kw)
+    return (jmake(JCommConfig(use_pallas=use_pallas, **kw), "uplink", jspec),
+            tmake(CommConfig(**kw), "uplink", tspec))
+
+
+def _buffer(seed, rows, cols):
+    """A packed buffer with its 5-coordinate pad tail at 0."""
+    x = np.random.default_rng(seed).standard_normal(
+        (rows, cols)).astype(np.float32)
+    x.reshape(-1)[rows * cols - 5:] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("ratio", [0.003, 0.05, 0.5, 1.0])
+def test_topk_encode_decode_header_match_jax(ratio):
+    """k, the (idx, val) payload, its decode, the header and the wire
+    length, against the JAX package's exact-k encode."""
+    rows, cols = 6, 64
+    jc, tc = _biased_pair("topk", rows, cols, topk_ratio=ratio)
+    x = _buffer(11, rows, cols)
+    assert tc.k == jc.k == tacc.topk_k(tc.cfg, tc.spec.total)
+    jp = jc.encode(None, jax.numpy.asarray(x))
+    tp = tc.encode(None, torch.from_numpy(x))
+    assert tp["idx"].dtype == torch.int32 and tp["val"].dtype == torch.float32
+    np.testing.assert_array_equal(tp["idx"].numpy(), np.asarray(jp["idx"]))
+    _eq(tp["val"], jp["val"])
+    _eq(tc.decode(tp), jc.decode(jp))
+    assert tc.header().to_dict() == jc.header().to_dict()
+    raw = tc.serialize(tp)
+    assert raw == jc.serialize(jp)
+    assert len(raw) == tacc.wire_bytes(tc.cfg, tc.spec.total)
+
+
+def test_topk_ties_exact_k_encode_against_threshold_roundtrip():
+    """Planted ties at the k-th magnitude.  ``encode`` keeps exactly k,
+    lowest index first, as ``lax.top_k`` does (``torch.topk`` need not:
+    a stable descending sort picks them); the round-trip runs the
+    threshold kernel, which keeps every tie, as the JAX package's
+    ``use_pallas`` route does.  The two JAX routes differ here too."""
+    rows, cols = 4, 32
+    x = np.zeros((rows, cols), np.float32)
+    flat = x.reshape(-1)
+    flat[[3, 40, 77, 90, 101, 120]] = [9.0, -9.0, 9.0, 3.0, -2.0, 9.0]
+    flat[[7, 8]] = [12.0, -11.0]
+    jc, tc = _biased_pair("topk", rows, cols, topk_ratio=4 / 123)
+    jk, _ = _biased_pair("topk", rows, cols, use_pallas=True,
+                         topk_ratio=4 / 123)
+    assert tc.k == 4
+    jx, tx = jax.numpy.asarray(x), torch.from_numpy(x)
+    tp = tc.encode(None, tx)
+    assert tp["idx"].tolist() == [7, 8, 3, 40]
+    np.testing.assert_array_equal(tp["idx"].numpy(),
+                                  np.asarray(jc.encode(None, jx)["idx"]))
+    exact = tc.decode(tp)
+    _eq(exact, jc.roundtrip(None, jx)[0])
+    kept, stat = tc.roundtrip(None, tx)
+    _eq(kept, jk.roundtrip(None, jx)[0])
+    assert float(stat) == 0.0
+    assert int((exact != 0).sum()) == 4 and int((kept != 0).sum()) == 6
+    assert torch.equal(kept.reshape(-1)[[3, 7, 8, 40, 77, 120]],
+                       tx.reshape(-1)[[3, 7, 8, 40, 77, 120]])
+
+
+def test_signsgd_encode_decode_header_match_jax():
+    """Signs (int8, jnp.sign's zero), header and sign bits byte for byte;
+    the scale, a sum, within SCALE_RTOL; decode and the majority vote
+    follow."""
+    rows, cols = 6, 64
+    jc, tc = _biased_pair("signsgd", rows, cols, sign_majority=True)
+    x = _buffer(12, rows, cols)
+    x[1, :3] = [0.0, -0.0, 0.0]
+    jp = jc.encode(None, jax.numpy.asarray(x))
+    tp = tc.encode(None, torch.from_numpy(x))
+    np.testing.assert_array_equal(tp["sign"].numpy(), np.asarray(jp["sign"]))
+    assert tp["scale"].shape == () and tp["scale"].dtype == torch.float32
+    np.testing.assert_allclose(float(tp["scale"]), float(jp["scale"]),
+                               rtol=SCALE_RTOL)
+    np.testing.assert_allclose(tc.decode(tp).numpy(),
+                               np.asarray(jc.decode(jp)), rtol=SCALE_RTOL)
+    assert float(tc.stat(tp)) == float(tp["scale"])
+    assert tc.header().to_dict() == jc.header().to_dict()
+    raw, want = tc.serialize(tp), jc.serialize(jp)
+    assert raw[:-4] == want[:-4]
+    assert len(raw) == tacc.wire_bytes(tc.cfg, tc.spec.total)
+
+
+@pytest.mark.parametrize("majority", [False, True], ids=["mean", "vote"])
+def test_signsgd_server_combine_matches_jax(majority):
+    """The server's majority vote ``wstat * sign(agg)``, bitwise, with
+    the pad tail's zeros (and a -0) kept at 0; without the vote the
+    mean passes through."""
+    rows, cols = 3, 64
+    jc, tc = _biased_pair("signsgd", rows, cols, sign_majority=majority)
+    agg = _buffer(13, rows, cols)
+    agg[0, :2] = [-0.0, np.nan]
+    wstat = np.float32(0.37)
+    got = tc.server_combine(torch.from_numpy(agg), torch.tensor(wstat))
+    _eq(got, jc.server_combine(jax.numpy.asarray(agg), jax.numpy.asarray(
+        wstat)))
+    if majority:
+        assert float(got.reshape(-1)[-1]) == 0.0
+
+
+@pytest.mark.parametrize("comp", ["topk", "signsgd"])
+@pytest.mark.parametrize("ef_on", [False, True], ids=["ef-off", "ef-on"])
+def test_biased_stages_vs_jax(comp, ef_on):
+    """The uplink encode, the downlink broadcast and the hessian
+    round-trip with a biased compressor, per client and batched, against
+    the JAX package's kernel route (``use_pallas``, interpret mode; the
+    non-kernel route where that is the only one, the downlink's vmap of
+    its round-trip).  Top-k: bitwise.  SignSGD: the reconstruction's
+    signs exact, every output within SCALE_RTOL of its largest value
+    (the scale is a sum; replica and residual inherit its error)."""
+    n, rows, cols = 3, 4, 128
+    jspec, tspec = _spec_pair(rows, cols)
+    kw = dict(compressor=comp, downlink_compressor=comp,
+              hessian_compressor=comp, error_feedback=ef_on,
+              downlink_error_feedback=ef_on, quant_block=cols,
+              topk_ratio=0.05)
+    theta, start, ef = _stage_inputs(3, n, rows, cols)
+    jt, js, je = (jax.numpy.asarray(a) for a in (theta, start, ef))
+    t = [torch.from_numpy(a) for a in (theta, start, ef)]
+    keys = [jax.random.PRNGKey(30 + i) for i in range(n)]
+
+    def same(got, want, signs=False):
+        if comp == "topk":
+            _eq(got, want)
+            return
+        w = np.asarray(want)
+        if signs:
+            np.testing.assert_array_equal(np.sign(got.numpy()), np.sign(w))
+        np.testing.assert_allclose(got.numpy(), w, rtol=0,
+                                   atol=SCALE_RTOL * np.abs(w).max())
+
+    jc = jmake(JCommConfig(use_pallas=True, **kw), "uplink", jspec)
+    tc = tmake(CommConfig(**kw), "uplink", tspec)
+    want = [jc.encode_delta(k, jt[i], js, je[i] if ef_on else None)
+            for i, k in enumerate(keys)]
+    for i in range(n):
+        xhat, stat, new_ef = tc.encode_delta(None, t[0][i], t[1],
+                                             t[2][i] if ef_on else None)
+        same(xhat, want[i][0], signs=True)
+        np.testing.assert_allclose(float(stat), float(want[i][1]),
+                                   rtol=SCALE_RTOL)
+        if ef_on:
+            same(new_ef, want[i][2])
+        else:
+            assert new_ef is None
+    xhat, stats, new_ef = tc.encode_delta_batched(None, t[0], t[1],
+                                                  t[2] if ef_on else None)
+    same(xhat, np.stack([w[0] for w in want]), signs=True)
+    np.testing.assert_allclose(stats.numpy(), [float(w[1]) for w in want],
+                               rtol=SCALE_RTOL)
+    if ef_on:
+        same(new_ef, np.stack([w[2] for w in want]))
+    # downlink: the server model is `start`, the replicas `theta`
+    jdn = jmake(JCommConfig(use_pallas=True, **kw), "downlink", jspec)
+    tdn = tmake(CommConfig(**kw), "downlink", tspec)
+    want = [jdown.broadcast(jdn, k, js, jt[i], je[i] if ef_on else None)
+            for i, k in enumerate(keys)]
+    for i in range(n):
+        model, new_ef = tdown.broadcast(tdn, None, t[1], t[0][i],
+                                        t[2][i] if ef_on else None)
+        same(model, want[i][0])
+        if ef_on:
+            same(new_ef, want[i][1])
+    models, new_efs = tdown.broadcast_batched(tdn, None, t[1], t[0],
+                                              t[2] if ef_on else None)
+    same(models, np.stack([w[0] for w in want]))
+    if ef_on:
+        same(new_efs, np.stack([w[1] for w in want]))
+    # the hessian stream's round-trip of a nonnegative EMA
+    jh = jmake(JCommConfig(use_pallas=True, **kw), "hessian", jspec)
+    th = tmake(CommConfig(**kw), "hessian", tspec)
+    h = np.abs(theta)
+    same(th.roundtrip(None, torch.from_numpy(h[0]))[0],
+         jh.roundtrip(keys[0], jax.numpy.asarray(h[0]))[0], signs=True)
+    same(th.roundtrip_batched(None, torch.from_numpy(h))[0],
+         np.stack([jh.roundtrip(k, jax.numpy.asarray(h[i]))[0]
+                   for i, k in enumerate(keys)]), signs=True)

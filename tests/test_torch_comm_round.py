@@ -11,28 +11,37 @@ interpret mode); the port runs on the CPU, where each kernel wrapper
 runs its plain version.
 
 Band.  The compression stage is bitwise the JAX eager path on identical
-inputs (tests/test_torch_quantize.py, tests/test_torch_comm.py); the
-local training that feeds it agrees only to rtol ~1e-5 (GEMM order, and
-XLA's FMA contraction inside the jitted round).  So ``floor(d/s + u)``
-now and then lands on the other side of an integer: that coordinate's
-reconstruction differs by one quant step ``s`` of its row, the new
-server model by ``s/S``, an EF residual or replica by ``s``, and the
-difference stays in the carried state.  Every compared coordinate
-(params, m, h, EF residuals, replicas) must lie within ``rtol=1e-5,
-atol=1e-6`` of the JAX engine's, except at most ``MAX_FLIPS`` per buffer
-after each round; each of those may differ by no more than the largest
-quant step of the streams that write the buffer (`STEPS_OF`) in that
-round, plus the band.  Measured on these cases, coordinates outside
-the band after rounds 1 and 2:
+inputs (tests/test_torch_quantize.py, tests/test_torch_comm.py; SignSGD's
+scale, a sum, within a few ulps); the local training that feeds it
+agrees only to rtol ~1e-5 (GEMM order, and XLA's FMA contraction inside
+the jitted round).  So now and then a coordinate lands on the other side
+of a decision: ``floor(d/s + u)`` on the other side of an integer (its
+reconstruction moves by one quant step ``s`` of its row), a magnitude on
+the other side of top-k's threshold (kept in one engine, zeroed in the
+other: it moves by about the threshold), a near-zero delta or aggregate
+on the other side of 0 (SignSGD moves it by ``2·scale``, the majority
+vote the server model by ``2·wstat``, at most twice the largest client
+scale).  The difference stays in the carried state.  Every compared
+coordinate (params, m, h, EF residuals, replicas) must lie within
+``rtol=1e-5, atol=1e-6`` of the JAX engine's, except at most
+``MAX_FLIPS`` per buffer after each round; each of those may differ by
+no more than the largest such move of the streams that write the buffer
+(`STEPS_OF`, recorded by `scale_probe`) in that round, plus the band.
+Measured on these cases, coordinates outside the band after rounds 1
+and 2:
 
-    uplink-int8-parallel      params 2, 2
-    uplink-int8-ef-parallel   params 2, 7; comm_ef 3, 10
-    bidir-int8-parallel       params 2, 2; m 0, 1; comm_dn_model 0, 2
-    bidir-int8-ef-sequential  params 2, 1; m 0, 1; comm_ef 3, 6;
-                              comm_dn_model 0, 2; comm_dn_ef 0, 4
-    int4 and FedAvg cases     none
+    uplink-int8-parallel             params 2, 2
+    uplink-int8-ef-parallel          params 2, 7; comm_ef 3, 10
+    bidir-int8-parallel              params 2, 2; m 0, 1; comm_dn_model 0, 2
+    bidir-int8-ef-sequential         params 2, 1; m 0, 1; comm_ef 3, 6;
+                                     comm_dn_model 0, 2; comm_dn_ef 0, 4
+    uplink-topk-parallel             comm_ef 1, 3
+    uplink-signsgd-majority-parallel comm_ef 1, 1
+    bidir-sign-topk-int4-sequential  comm_ef 1, 0 (each round from the
+                                     JAX state: `RESYNCED`)
+    int4 and FedAvg cases            none
 
-each within one step (params by s/S: 4.7e-6 at S=4, 9.5e-6 at S=2,
+each within its move (params by s/S: 4.7e-6 at S=4, 9.5e-6 at S=2,
 against int8 steps near 1.9e-5).
 """
 import jax
@@ -49,7 +58,9 @@ from repro.models.small import MLPTask as JMLPTask
 from repro_torch import convert
 from repro_torch.comm import compressors as tcomp
 from repro_torch.configs.base import COMM_STREAMS, CommConfig, FedConfig
+from repro_torch.comm.downlink import wants_downlink_ef
 from repro_torch.core.fed import FedEngine
+from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels import quantize as tq
 from repro_torch.models.small import MLPTask
 
@@ -65,6 +76,9 @@ STEPS_OF = {"params": ("uplink", "downlink"), "m": ("uplink", "downlink"),
 SALT_UP, SALT_DN, SALT_H, SALT_SERVER_H = 0xC0, 0xD0, 0x4E, 0x4D
 BIDIR = dict(compressor="int8", downlink_compressor="int8",
              hessian_compressor="int4", participation=0.5)
+BIASED_BIDIR = dict(compressor="signsgd", downlink_compressor="topk",
+                    hessian_compressor="int4", topk_ratio=0.05,
+                    participation=0.5)
 
 CASES = {
     "uplink-int8-parallel": (dict(optimizer="fed_sophia",
@@ -86,7 +100,23 @@ CASES = {
     "fedavg-int8-sequential": (dict(optimizer="fedavg",
                                     strategy="sequential"),
                                dict(compressor="int8", participation=0.5)),
+    "uplink-topk-parallel": (dict(optimizer="fed_sophia",
+                                  strategy="parallel"),
+                             dict(compressor="topk", topk_ratio=0.05)),
+    "uplink-signsgd-majority-parallel": (
+        dict(optimizer="fed_sophia", strategy="parallel"),
+        dict(compressor="signsgd", sign_majority=True)),
+    "bidir-sign-topk-int4-sequential": (
+        dict(optimizer="fed_sophia", strategy="sequential"), BIASED_BIDIR),
 }
+
+#: cases whose port rounds each start from the JAX state: SignSGD's mean
+#: of S=2 clients has a few distinct magnitudes, so the next downlink
+#: delta is a sea of near-ties at top-k's threshold, split by the last
+#: ulp of theta; a 1e-6 nudge of the weights moves thousands of
+#: coordinates across it in the next round (measured on the CPU), a
+#: property of the configuration, not of the port
+RESYNCED = {"bidir-sign-topk-int4-sequential"}
 
 
 @pytest.fixture(scope="module")
@@ -183,22 +213,35 @@ def flips_within_band(jstate, tstate, steps):
 
 @pytest.fixture
 def scale_probe(monkeypatch):
-    """Records the largest row scale the port computes per stream (a
-    stream whose config view equals another's records into both)."""
+    """Records, per stream, the most a flipped coordinate may move its
+    reconstruction: the largest row scale of a quantizer, the largest
+    threshold of top-k, twice the largest scale of SignSGD (a stream
+    whose config view equals another's records into both)."""
     steps = {}
-    orig = tcomp.StochasticQuant.scales
 
-    def scales(self, flat):
-        s = orig(self, flat)
-        for name in COMM_STREAMS:
-            if self.cfg == steps["comm"].stream(name):
-                steps[name] = max(steps.get(name, 0.0), float(s.max()))
-        return s
-    monkeypatch.setattr(tcomp.StochasticQuant, "scales", scales)
+    def probe(cls, name, factor):
+        orig = getattr(cls, name)
+
+        def wrapped(self, flat):
+            s = orig(self, flat)
+            for stream in COMM_STREAMS:
+                if self.cfg == steps["comm"].stream(stream):
+                    steps[stream] = max(steps.get(stream, 0.0),
+                                        factor * float(s.max()))
+            return s
+        monkeypatch.setattr(cls, name, wrapped)
+    probe(tcomp.StochasticQuant, "scales", 1.0)
+    probe(tcomp.TopK, "thresholds", 1.0)
+    probe(tcomp.SignSGD, "scales", 2.0)
     return steps
 
 
-def run_both(data, fed_kw, comm_kw, scale_probe, packed=False):
+def run_both(data, fed_kw, comm_kw, scale_probe, packed=False, drop=(),
+             generator=None, resync=False):
+    """2 rounds of each engine; the port gets the JAX draws less the
+    ``comm_noise`` keys in ``drop``, or, given ``generator``, only the
+    gumbel noise injected and the generator for everything else.  With
+    ``resync`` each port round starts from the JAX engine's state."""
     key, batches, rngs = data
     cfg = dict(num_clients=C, local_iters=J, lr=0.02, tau=TAU,
                total_rounds=8, **fed_kw)
@@ -218,12 +261,17 @@ def run_both(data, fed_kw, comm_kw, scale_probe, packed=False):
     counts = []
     for r in range(ROUNDS):
         gumbel, noise = jax_draws(jeng, params0, rngs[r])
+        noise = {k: v for k, v in noise.items() if k not in drop}
+        if resync:
+            tstate = convert.state_from_numpy(
+                jax.tree.map(np.asarray, jstate), device="cpu")
         jstate, jm = jround(jstate, batches[r], rngs[r])
         scale_probe.clear()
         scale_probe["comm"] = teng.fed.comm
-        tstate, tm = teng.round(tstate, _torch_batch(batches[r]),
-                                gumbel=torch.from_numpy(gumbel),
-                                comm_noise=noise)
+        tstate, tm = teng.round(
+            tstate, _torch_batch(batches[r]), generator=generator,
+            gumbel=torch.from_numpy(gumbel),
+            comm_noise=None if generator is not None else noise)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=RTOL, atol=ATOL)
         assert tm["total_bytes"] == int(jm["total_bytes"])
@@ -235,7 +283,7 @@ def run_both(data, fed_kw, comm_kw, scale_probe, packed=False):
 @pytest.mark.parametrize("name", list(CASES))
 def test_comm_round_parity(data, scale_probe, name):
     tq.reset_launches()
-    run_both(data, *CASES[name], scale_probe)
+    run_both(data, *CASES[name], scale_probe, resync=name in RESYNCED)
     # CPU tensors run the plain versions: no kernel launch counted
     assert sum(tq.LAUNCHES.values()) == 0
 
@@ -243,6 +291,30 @@ def test_comm_round_parity(data, scale_probe, name):
 def test_comm_round_parity_packed_resident(data, scale_probe):
     run_both(data, dict(optimizer="fed_sophia", strategy="parallel"),
              BIDIR, scale_probe, packed=True)
+
+
+def test_identity_hessian_stream_needs_no_noise(data, scale_probe):
+    """Only a quantized stream reads noise: an ``identity`` hessian
+    stream runs without ``comm_noise["hessian"]`` or
+    ``["server_hessian"]``, and a top-k downlink without
+    ``["downlink"]``, and the round still matches the JAX round."""
+    run_both(data, dict(optimizer="fed_sophia", strategy="parallel"),
+             dict(compressor="int8", downlink_compressor="topk",
+                  hessian_compressor="identity", participation=0.5),
+             scale_probe, drop=("hessian", "server_hessian", "downlink"))
+
+
+def test_noise_free_streams_draw_nothing(data, scale_probe):
+    """With no quantized stream and every client taking part, a round
+    on a generator draws nothing from it (the gumbel noise is injected),
+    and matches the JAX round."""
+    g = torch.Generator().manual_seed(0)
+    before = g.get_state()
+    run_both(data, dict(optimizer="fed_sophia", strategy="sequential"),
+             dict(compressor="topk", downlink_compressor="signsgd",
+                  hessian_compressor="identity", topk_ratio=0.05),
+             scale_probe, generator=g)
+    assert torch.equal(g.get_state(), before)
 
 
 def test_participants_match_the_jax_sample():
@@ -256,3 +328,57 @@ def test_participants_match_the_jax_sample():
     assert ids.shape == (4,) and bool(torch.all(ids[1:] > ids[:-1]))
     assert torch.equal(ids, eng.round_participants(g))
     assert torch.equal(ids, tcomp.participation_sample(g, 8, 4))
+
+
+#: (stream, compressor, sign_majority, EF policy of the stream's link)
+BIASED_MATRIX = [(stream, comp, vote, ef)
+                 for stream in COMM_STREAMS
+                 for comp, vote in (("topk", False), ("signsgd", False),
+                                    ("signsgd", True))
+                 for ef in (("auto", True, False) if stream != "hessian"
+                            else ("auto",))]
+
+
+@pytest.mark.parametrize("strategy", ["parallel", "sequential"])
+@pytest.mark.parametrize(
+    "stream,comp,vote,ef", BIASED_MATRIX,
+    ids=[f"{s}-{c}{'-vote' if v else ''}-ef_{e}"
+         for s, c, v, e in BIASED_MATRIX])
+def test_biased_compressors_run_on_every_stream(stream, comp, vote, ef,
+                                                strategy):
+    """TopK and SignSGD (with and without the majority vote) on each
+    stream, both strategies, EF auto/on/off: two rounds on a generator
+    at participation 0.5 keep every buffer finite, materialise EF
+    residuals exactly as the policy says ("auto": on for both), and
+    carry nonzero residuals."""
+    kw = {"uplink": dict(compressor=comp, error_feedback=ef),
+          "downlink": dict(downlink_compressor=comp,
+                           downlink_error_feedback=ef),
+          "hessian": dict(hessian_compressor=comp)}[stream]
+    comm = CommConfig(topk_ratio=0.05, sign_majority=vote, participation=0.5,
+                      **kw)
+    eng = FedEngine(MLPTask(hidden=HIDDEN),
+                    FedConfig(num_clients=C, local_iters=2, tau=TAU,
+                              lr=0.02, strategy=strategy, comm=comm),
+                    device="cpu")
+    g = torch.Generator().manual_seed(1)
+    state = eng.init(g)
+    rs = np.random.default_rng(0)
+    x = torch.tensor(rs.standard_normal((64, 28, 28, 1)), dtype=torch.float32)
+    y = torch.tensor(rs.integers(0, 10, 64))
+    part = tsyn.dirichlet_partition(0, y, C, alpha=0.5)
+    for r in range(2):
+        batches = tsyn.client_batches(g, x, y, part, B)
+        state, metrics = eng.round(state, batches, generator=g)
+        assert np.isfinite(float(metrics["loss"]))
+    bufs = _buffers(convert.state_to_numpy(state))
+    assert all(np.all(np.isfinite(v)) for v in bufs.values())
+    want_ef = {"comm_ef": tcomp.wants_error_feedback(comm),
+               "comm_dn_ef": wants_downlink_ef(comm)}
+    assert want_ef[{"uplink": "comm_ef", "downlink": "comm_dn_ef",
+                    "hessian": "comm_ef"}[stream]] == (
+        stream != "hessian" and ef in ("auto", True))
+    for key, on in want_ef.items():
+        assert (key in bufs) == on, key
+        if on:
+            assert np.any(bufs[key] != 0), key

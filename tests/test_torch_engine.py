@@ -189,9 +189,6 @@ OUTSIDE_SLICE = {
     "done": dict(optimizer="done"),
     "fedadam": dict(optimizer="fedadam"),
     "fedyogi": dict(optimizer="fedyogi"),
-    "topk-uplink": dict(comm=CommConfig(compressor="topk")),
-    "signsgd-uplink": dict(comm=CommConfig(compressor="signsgd")),
-    "topk-downlink": dict(comm=CommConfig(downlink_compressor="topk")),
     "dispatch-chunk": dict(sched=SchedConfig(dispatch_chunk=4)),
     "robust-aggregator": dict(robust=RobustConfig(aggregator="trimmed_mean",
                                                   trim_fraction=0.25)),

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the Sophia update and the six quantize
-round-trip entry points) against their plain PyTorch versions, on the
-card.
+"""The port's CUDA kernels (the Sophia update, the six quantize
+round-trip entry points and the four sign / top-k threshold entry
+points) against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA card and ``nvcc`` (the kernel is built
 from ``src/repro_torch/kernels/csrc`` at first use), so each is marked
@@ -207,3 +207,68 @@ def test_quantize_wrappers_raise_on_card_inputs_they_do_not_take(card):
     with pytest.raises(ValueError, match="devices"):
         tq.broadcast_roundtrip_flat(other.cpu(), theta[0], ef[0], u[0],
                                     s[0], qmax=7)
+
+
+def _biased_inputs(device, store, seed=0):
+    """x ``(3, 7, 1000)`` in ``store`` with NaN, +-0 and +-inf and 8 ties
+    at each client's threshold; one fp32 scalar per client (its mean |x|,
+    rounded to ``store``; the last client's is 0)."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((3, 7, 1000)).astype(np.float32)
+    flat = x.reshape(3, -1)
+    v = torch.tensor(np.abs(flat).mean(-1)).to(QSTORES[store]).float()
+    v[-1] = 0.0
+    for n in range(3):
+        pos = rs.choice(flat.shape[1], 14, replace=False)
+        flat[n, pos[:8]] = float(v[n]) * np.array([1, -1] * 4, np.float32)
+        flat[n, pos[8:]] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf]
+    return (torch.tensor(x, device=device).to(QSTORES[store]),
+            v.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", list(QSTORES))
+def test_biased_kernels_bitwise_vs_plain(card, store):
+    """The sign and threshold entry points, batched and flat, against
+    their plain versions on the same card: bitwise, NaN and +-0 passed
+    through (sign) or zeroed and kept (threshold) as jnp does."""
+    x, v = _biased_inputs(card, store)
+    calls = {
+        "sign_roundtrip_batched": (lambda f: f(x, v),
+                                   ref.sign_roundtrip_ref),
+        "sign_roundtrip_flat": (lambda f: f(x[1], v[1]),
+                                ref.sign_roundtrip_ref),
+        "topk_threshold_batched": (lambda f: f(x, v),
+                                   ref.topk_threshold_ref),
+        "topk_threshold_flat": (lambda f: f(x[1], v[1]),
+                                ref.topk_threshold_ref),
+    }
+    tq.reset_launches()
+    for name, (call, plain) in calls.items():
+        got = call(getattr(tq, name))
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES[name] == 1
+        _bitwise((got,), (call(plain),))
+    if store == "fp32":
+        sg = tq.sign_roundtrip_flat(x[0], v[0])
+        nan, zero = torch.isnan(x[0]), x[0] == 0
+        assert torch.equal(torch.isnan(sg), nan)
+        assert torch.equal(torch.signbit(sg[zero]), torch.signbit(x[0][zero]))
+        kept = tq.topk_threshold_flat(x[0], v[0])
+        assert not bool(torch.isnan(kept).any())
+        assert bool((kept[x[0].abs() == v[0]] != 0).all())
+
+
+@pytest.mark.cuda
+def test_biased_wrappers_raise_on_card_inputs_they_do_not_take(card):
+    x, v = _biased_inputs(card, "fp32")
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.sign_roundtrip_batched(x.transpose(1, 2), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.topk_threshold_batched(x, torch.stack([v, v], 1)[:, 0])
+    with pytest.raises(TypeError, match="dtype"):
+        tq.topk_threshold_flat(x[0].double(), v[0])
+    with pytest.raises(TypeError, match="scale"):
+        tq.sign_roundtrip_batched(x, v.double())
+    with pytest.raises(ValueError, match="devices"):
+        tq.sign_roundtrip_flat(x[0], v[0].cpu())

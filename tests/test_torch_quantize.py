@@ -207,3 +207,131 @@ def test_cpu_calls_launch_nothing_and_bad_inputs_raise():
         tq.broadcast_roundtrip_batched(other, th.transpose(1, 2).contiguous()
                                        .transpose(1, 2), ef, u, s,
                                        qmax=QMAX)
+
+
+# --------------------------------------- the biased compressors' kernels
+#: scales and thresholds of the sign / top-k cases: one per client
+SCALARS = np.array([0.8125, 0.5, 0.0], np.float32)
+_BITS = {1: np.uint8, 2: np.int16, 4: np.int32}
+
+
+def _biased_inputs(store, seed=5):
+    """An ``(N, R, C)`` stack in ``store`` with NaN, +-0 and +-inf planted
+    (no inf in e4m3, which has none) and ties at each client's threshold
+    (``SCALARS``): exact +-thr, and the neighbours just below and above
+    in the storage format.  Cast once by JAX; the torch tensor carries
+    the same bytes.  Returns ``(torch x, jnp x)``."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((N, R, C)).astype(np.float32)
+    flat = x.reshape(N, -1)
+    specials = [np.nan, -np.nan, 0.0, -0.0]
+    if store != "e4m3":
+        specials += [np.inf, -np.inf]
+    for n in range(N):
+        pos = rs.choice(R * C, 40, replace=False)
+        flat[n, pos[:len(specials)]] = specials
+        thr = SCALARS[n]
+        flat[n, pos[10:20]] = thr * np.array([1, -1] * 5, np.float32)
+        flat[n, pos[20:25]] = thr * (1 - 2 ** -4)
+        flat[n, pos[25:30]] = -thr * (1 + 2 ** -4)
+    jdt = DTYPES[store][1]
+    jx = jnp.asarray(x).astype(jdt)
+    raw = np.asarray(jx).view(_BITS[jx.dtype.itemsize])
+    return torch.from_numpy(raw.copy()).view(DTYPES[store][0]), jx
+
+
+def _bitwise_nan(got, want):
+    """`_bitwise`, but a NaN output need only be NaN in both: storing a
+    NaN in bf16 or e5m2, torch writes its own NaN (bf16 0xFFFF on the
+    CPU, e5m2 0x7F with the sign) where JAX keeps the payload."""
+    w = np.asarray(want)
+    assert str(got.dtype).split(".")[-1] == w.dtype.name
+    gf, wf = got.float().numpy(), w.astype(np.float32)
+    nan = np.isnan(wf)
+    np.testing.assert_array_equal(np.isnan(gf), nan)
+    raw_g = got.view(torch.uint8).numpy().reshape(got.numel(), -1)
+    raw_w = w.view(np.uint8).reshape(w.size, -1)
+    np.testing.assert_array_equal(raw_g[~nan.reshape(-1)],
+                                  raw_w[~nan.reshape(-1)])
+
+
+@pytest.mark.parametrize("store", list(DTYPES))
+def test_biased_refs_bitwise_vs_jax(store):
+    """The plain sign / threshold versions against the JAX package's
+    eager refs and its Pallas kernels in interpret mode, flat and
+    batched: bitwise (one compare or one multiply: nothing to
+    contract), NaN, +-0, +-inf and ties at the threshold included; NaN
+    outputs as `_bitwise_nan` says (fp32 and e4m3 NaNs bitwise too)."""
+    tx, jx = _biased_inputs(store)
+    check = _bitwise if store in ("fp32", "e4m3") else _bitwise_nan
+    ts, js = torch.from_numpy(SCALARS), jnp.asarray(SCALARS)
+    for tfn, jref_fn, jkern in (
+            (tq.sign_roundtrip_batched, jref.sign_roundtrip_ref,
+             jq.sign_roundtrip_batched),
+            (tq.topk_threshold_batched, jref.topk_threshold_ref,
+             jq.topk_threshold_batched)):
+        got = tfn(tx, ts)
+        check(got, jref_fn(jx, js))
+        check(got, jkern(jx, js, interpret=True))
+    for n in range(N):
+        for tfn, jref_fn, jkern in (
+                (tq.sign_roundtrip_flat, jref.sign_roundtrip_ref,
+                 jq.sign_roundtrip_flat),
+                (tq.topk_threshold_flat, jref.topk_threshold_ref,
+                 jq.topk_threshold_flat)):
+            got = tfn(tx[n], ts[n])
+            check(got, jref_fn(jx[n], js[n]))
+            check(got, jkern(jx[n], js[n], interpret=True))
+
+
+@pytest.mark.parametrize("store", list(DTYPES))
+def test_biased_batched_equals_looped_flat(store):
+    tx, _ = _biased_inputs(store, seed=6)
+    ts = torch.from_numpy(SCALARS)
+    for batched, flat in ((tq.sign_roundtrip_batched, tq.sign_roundtrip_flat),
+                          (tq.topk_threshold_batched,
+                           tq.topk_threshold_flat)):
+        loop = torch.stack([flat(tx[n], ts[n]) for n in range(N)])
+        assert torch.equal(batched(tx, ts).view(torch.uint8),
+                           loop.view(torch.uint8))
+
+
+def test_sign_and_threshold_semantics():
+    """jnp.sign's rules, not torch.sign's: NaN stays NaN and -0 stays -0;
+    the threshold keeps ties and -0 (at thr 0) and zeroes NaN."""
+    x = torch.tensor([[float("nan"), -0.0, 0.0, 2.0, -3.0, float("inf")]])
+    out = tq.sign_roundtrip_flat(x, torch.tensor(0.5))
+    assert torch.isnan(out[0, 0])
+    assert out[0, 1].item() == 0.0 and torch.signbit(out[0, 1])
+    assert out[0, 2].item() == 0.0 and not torch.signbit(out[0, 2])
+    assert out[0, 3:].tolist() == [0.5, -0.5, 0.5]
+    keep = tq.topk_threshold_flat(x, torch.tensor(2.0))
+    assert keep[0].tolist()[1:] == [0.0, 0.0, 2.0, -3.0, float("inf")]
+    assert keep[0, 0].item() == 0.0
+    zero = tq.topk_threshold_flat(x, torch.tensor(0.0))
+    assert torch.signbit(zero[0, 1]) and zero[0, 0].item() == 0.0
+
+
+def test_biased_cpu_calls_launch_nothing_and_bad_inputs_raise():
+    tx, _ = _biased_inputs("fp32", seed=7)
+    ts = torch.from_numpy(SCALARS)
+    tq.reset_launches()
+    tq.sign_roundtrip_batched(tx, ts)
+    tq.topk_threshold_batched(tx, ts)
+    tq.sign_roundtrip_flat(tx[0], ts[1])
+    tq.topk_threshold_flat(tx[0], ts[0])
+    assert sum(tq.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="3D"):
+        tq.sign_roundtrip_batched(tx[0], ts)
+    with pytest.raises(ValueError, match="thr"):
+        tq.topk_threshold_batched(tx, ts[:2])
+    with pytest.raises(ValueError, match="scale"):
+        tq.sign_roundtrip_flat(tx[0], ts)
+    with pytest.raises(TypeError, match="scale"):
+        tq.sign_roundtrip_batched(tx, ts.double())
+    with pytest.raises(TypeError, match="dtype"):
+        tq.topk_threshold_flat(tx[0].double(), ts[0])
+    with pytest.raises(TypeError, match="tensor"):
+        tq.sign_roundtrip_flat(tx[0], 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.topk_threshold_batched(tx.transpose(1, 2), ts)

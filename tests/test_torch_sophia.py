@@ -136,7 +136,9 @@ def test_wrapper_rejects_bad_inputs():
 def test_registry_marks_sophia_update_ported():
     from repro.kernels import KERNELS as JKERNELS
     assert tuple(KERNELS) == JKERNELS
-    assert [k for k, v in KERNELS.items() if v] == ["sophia_update"]
+    assert [k for k, v in KERNELS.items() if v] == [
+        "quant_roundtrip", "broadcast_roundtrip", "uplink_roundtrip",
+        "sign_roundtrip", "topk_threshold", "sophia_update"]
 
 
 def test_resolve_device():
