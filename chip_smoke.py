@@ -12,17 +12,23 @@ path and on the compressed comm path (int8 uplink with EF off and on;
 bidirectional int8/int8/int4 at participation 0.5, parallel and
 sequential; top-k and SignSGD with majority vote on the uplink;
 bidirectional SignSGD/top-k/int4 at participation 0.5, parallel and
-sequential), checks small rounds against the same rounds on the CPU,
-and times each kernel with CUDA events.  Every path runs with the launch
-counts set to 0 just before it and read just after.  Any failure ends
-the run with a nonzero exit; nothing is caught.  Without a card it exits
-nonzero before printing any result.
+sequential), through the virtual-time scheduler (sync, semisync with and
+without chunked dispatch, async, under a straggler profile) and the
+adversarial fleet (sign-flip with trimmed mean and coordinate median on
+a Dirichlet(0.1) partition, random wires into a trimmed mean on the
+comm path, a scale attack under norm-clip in semisync), and the pytree
+Sophia step; checks small rounds and scheduler runs against the same
+on the CPU, and times each kernel with CUDA events.  Every path runs
+with the launch counts set to 0 just before it and read just after.
+Any failure ends the run with a nonzero exit; nothing is caught.
+Without a card it exits nonzero before printing any result.
 
 The second-to-last line of standard output is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,15 +47,25 @@ from repro_torch.comm import compressors as tcomp  # noqa: E402
 from repro_torch.comm import flat as tflat  # noqa: E402
 from repro_torch.configs import cnn_mnist, mlp_mnist  # noqa: E402
 from repro_torch.configs.base import (COMM_STREAMS, CommConfig,  # noqa: E402
-                                      FedConfig)
+                                      FedConfig, RobustConfig,
+                                      SchedConfig)
+from repro_torch.core import sophia as tsophia  # noqa: E402
 from repro_torch.core.fed import FedEngine  # noqa: E402
+from repro_torch.core.gnb import gnb_estimate  # noqa: E402
+from repro_torch.data import partition as tpart  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as tq  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import robust_agg as trobust  # noqa: E402
 from repro_torch.kernels import sophia_update as tk  # noqa: E402
+from repro_torch.kernels import stale_accum as tstale  # noqa: E402
 from repro_torch.kernels.ref import sophia_update_ref  # noqa: E402
-from repro_torch.models.small import CNNTask, MLPTask  # noqa: E402
+from repro_torch.models.small import (CNNTask, MLPTask,  # noqa: E402
+                                      gumbel_noise)
+from repro_torch.robust.aggregators import resolve, trim_count  # noqa: E402
+from repro_torch.sched.scheduler import VirtualScheduler  # noqa: E402
 
 SEED = 0
 HP = dict(beta1=0.9, beta2=0.95, rho=0.04, eps=1e-12, weight_decay=1e-4)
@@ -66,6 +82,11 @@ CNN_PARAMS, CNN_PACKED = 20_490, (21, 1024)     # CNN channels (16, 32)
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+#: fp32 instructions per second that are not FMAs (add, multiply,
+#: compare, select): the FLOP rate counts an FMA as two operations, and
+#: the kernels are built with -fmad=false, so each operation they count
+#: is one instruction at half that rate
+FP32_OPS_PER_S = FP32_FLOPS / 2
 #: fp32 operations per coordinate of the Sophia update (m: 3, h EMA: 3,
 #: h select: 3, decay: 2, max: 1, divide: 1, clip: 2, step: 2)
 SOPHIA_OPS = 17
@@ -88,6 +109,36 @@ TOPK_RATIO = 0.05
 #: of top-k's selection (torch.topk's sort and select kernels)
 COMM_KERNEL_WORDS = ("roundtrip", "per_client", "topk", "sort", "radix",
                      "select")
+#: the scheduler's and the adversarial fleet's phases, as the JAX
+#: package's benchmark runs them at paper scale (benchmarks/run.py:
+#: fig_sched, fig_robust): int8 uplinks, a straggler profile, 20%
+#: byzantine clients on a Dirichlet(0.1) partition
+STRAGGLER = dict(latency_profile="straggler", straggler_frac=0.25,
+                 straggler_slowdown=10.0)
+BYZ = dict(attack_fraction=0.2)
+DIRICHLET_ALPHA = 0.1
+#: norm-clip's bound in the semisync phase: below the wires' norms, so
+#: it clips every arrival
+CLIP_NORM = 0.5
+SCHED_EVENTS = {"sync": 2, "semisync": 6, "chunk8": 3, "async": 24,
+                "normclip": 3}
+ROBUST_ROUNDS = 2
+
+
+def stale_ops(K: int) -> int:
+    """fp32 operations per output coordinate of the stale accumulate: a
+    multiply and an add per arrival, the final scale."""
+    return 2 * K + 1
+
+
+def robust_ops(K: int, trim: int) -> int:
+    """fp32 operations per output coordinate of the robust combine: the
+    scale multiply per arrival, a select and a compare per arrival in
+    each of the 2*trim passes, the survivor-weight select, the multiply
+    and the two adds of the sums per arrival, the divide."""
+    return K + 2 * trim * K * 2 + 4 * K + 1
+
+
 TIMED_LAUNCHES = 200
 #: timed calls queued at once, and the sleep (GPU clock cycles, about
 #: 50 ms) they queue behind
@@ -140,9 +191,14 @@ REPLACES = {
     "sign_roundtrip_batched": "src/repro/kernels/quantize.py:335",
     "topk_threshold_flat": "src/repro/kernels/quantize.py:234",
     "topk_threshold_batched": "src/repro/kernels/quantize.py:360",
+    "sophia_fused_step": "src/repro/kernels/ops.py:32",
+    "stale_accum_flat": "src/repro/kernels/stale_accum.py:61",
+    "robust_agg_flat": "src/repro/kernels/robust_agg.py:74",
 }
 SOURCES = {name: "src/repro_torch/kernels/csrc/"
            + ("sophia_update.cu" if name.startswith("sophia") else
+              "stale_accum.cu" if name.startswith("stale") else
+              "robust_agg.cu" if name.startswith("robust") else
               "quantize.cu") for name in REPLACES}
 
 
@@ -154,13 +210,20 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
+#: the launch counters of every kernel wrapper
+COUNTERS = (tk, tq, tstale, trobust, ops)
+
+
 def launch_counts() -> dict:
-    return {**tk.LAUNCHES, **tq.LAUNCHES}
+    out = {}
+    for mod in COUNTERS:
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def reset_launches() -> None:
-    tk.reset_launches()
-    tq.reset_launches()
+    for mod in COUNTERS:
+        mod.reset_launches()
 
 
 def expect(**nonzero) -> dict:
@@ -481,6 +544,139 @@ def fp8_overflow_rule(device):
                           zip(vals.tolist(), got)))
 
 
+def agg_inputs(K, device, seed, store=torch.float32, special=False):
+    """A ``(K, 116, 1024)`` arrival stack stored in ``store`` with fp32
+    weights in [0.25, 2) and scales in [0.5, 1.5): arrivals 1 and 2 tie
+    everywhere, arrival 5 ties arrival 0 at every third coordinate;
+    ``special`` puts NaN, +inf and -inf at random places and an all -inf
+    and an all-NaN coordinate."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((K,) + MLP_PACKED).astype(np.float32)
+    if K > 2:
+        x[2] = x[1]
+    if K > 5:
+        x.reshape(K, -1)[5, ::3] = x.reshape(K, -1)[0, ::3]
+    if special:
+        flat = x.reshape(K, -1)
+        for val in (np.nan, np.inf, -np.inf):
+            flat[rs.integers(0, K, 256), rs.integers(0, flat.shape[1],
+                                                      256)] = val
+        flat[:, 11] = -np.inf
+        flat[:, 12] = np.nan
+    w = torch.tensor(rs.uniform(0.25, 2.0, K), dtype=torch.float32,
+                     device=device)
+    sc = torch.tensor(rs.uniform(0.5, 1.5, K), dtype=torch.float32,
+                      device=device)
+    return torch.tensor(x, device=device).to(store), w, sc
+
+
+def inv_sum(w) -> float:
+    """1 / sum(w), the sum taken in ascending order in fp32, as the
+    scheduler's apply takes it."""
+    total = np.float32(0.0)
+    for v in w.cpu().numpy():
+        total = np.float32(total + v)
+    return float(np.float32(1.0) / total)
+
+
+def check_agg_kernels(device):
+    """The stale accumulate and the robust combine against their plain
+    versions on the card, bitwise, at the MLP-128 packing (116, 1024):
+    the accumulate at K = 1, 16, 32 over fp32, bf16, e4m3 and e5m2 wires
+    with inv_norm 1 and 1/sum(w), and with NaN and inf; the combine at
+    K = 15, 16, 32, 65 (past the register buckets) x trim 0, 1, 8 and
+    (K-1)//2 x normalize, fp32 with ties, NaN and +-inf and scales !=
+    1, at K=16 trim 1 over the narrow wire dtypes, and at K=16 trim 4,
+    the main path's setting at S=16."""
+    err = {"stale_accum_flat": 0.0, "robust_agg_flat": 0.0}
+
+    def held(label, name, kern, plain):
+        before = launch_counts()[name]
+        got = kern()
+        sync()
+        if launch_counts()[name] != before + 1:
+            raise SystemExit(f"kernel check {label}: {name} did not launch")
+        err[name] = max(err[name], same_bits(label, name, got, plain()))
+
+    n = 0
+    for K in (1, 16, 32):
+        for store in STORES:
+            for special in ((False, True) if store == torch.float32
+                            else (False,)):
+                x, w, _ = agg_inputs(K, device, SEED + 200 + n, store,
+                                     special)
+                n += 1
+                for inv in (1.0, inv_sum(w)):
+                    held(f"stale K={K} {str(store)[6:]}", "stale_accum_flat",
+                         lambda: tstale.stale_accum_flat(x, w, inv),
+                         lambda: kref.stale_accum_ref(x, w, inv))
+                print(f"  stale_accum_flat K={K:2d} {str(store)[6:]:14s}"
+                      f"{' NaN/inf' if special else ''} bitwise equal")
+    cases = [(K, trim, torch.float32) for K in (15, 16, 32, 65)
+             for trim in sorted({0, 1, 8, (K - 1) // 2}) if 2 * trim < K]
+    cases += [(16, 1, store) for store in STORES[1:]]
+    cases += [(16, 4, torch.float32)]     # robust-comm-int8-randomwire's
+    for i, (K, trim, store) in enumerate(cases):
+        x, w, sc = agg_inputs(K, device, SEED + 300 + i, store,
+                              special=True)
+        for normalize in (True, False):
+            held(f"robust K={K} trim={trim}", "robust_agg_flat",
+                 lambda: trobust.robust_agg_flat(x, w, sc, trim=trim,
+                                                 normalize=normalize),
+                 lambda: kref.robust_agg_ref(x, w, sc, trim=trim,
+                                             normalize=normalize))
+        print(f"  robust_agg_flat K={K:2d} trim={trim:2d} "
+              f"{str(store)[6:]:14s} NaN/inf/ties, both normalize, "
+              "bitwise equal")
+    return err
+
+
+def mlp_trees(device, seed):
+    """The MLP-128 params and grads / h_hat / m / h trees of its shapes
+    (h and h_hat non-negative)."""
+    params = MLPTask(hidden=mlp_mnist.HIDDEN).init(gen(device, seed),
+                                                   device)
+    g = gen(device, seed + 1)
+
+    def like(scale, positive=False):
+        t = {k: scale * torch.randn(v.shape, generator=g, device=device)
+             for k, v in params.items()}
+        return {k: v.abs() for k, v in t.items()} if positive else t
+    return [params, like(0.1), like(0.01, True), like(0.5),
+            like(0.02, True)]
+
+
+def fused_step_plain(trees, do_h, lr):
+    """Row 3's plain version: the pack, row 1's plain update, the
+    unpack."""
+    spec = tflat.flat_spec(trees[0], cols=ops.BLOCK_C)
+    outs = sophia_update_ref(*(tflat.pack(t, spec) for t in trees), do_h,
+                             lr=lr, **HP)
+    return tuple(tflat.unpack(o, spec) for o in outs)
+
+
+def check_fused_step(device):
+    """The pytree route on the MLP-128 trees against its plain version,
+    bitwise, for do_h 0 and 1."""
+    err = 0.0
+    for do_h in (0, 1):
+        trees = mlp_trees(device, SEED + 400 + do_h)
+        before = ops.LAUNCHES["sophia_fused_step"]
+        got = ops.sophia_fused_step(*trees, do_h, lr=LR, **HP)
+        sync()
+        if ops.LAUNCHES["sophia_fused_step"] != before + 1:
+            raise SystemExit("kernel check: sophia_fused_step did not "
+                             "launch")
+        want = fused_step_plain(trees, do_h, LR)
+        for g_, w_ in zip(got, want):
+            for k in w_:
+                err = max(err, same_bits(f"fused step do_h={do_h} {k}",
+                                         "sophia_fused_step", g_[k], w_[k]))
+        print(f"  sophia_fused_step MLP-128 pytree do_h={do_h} bitwise "
+              "equal")
+    return {"sophia_fused_step": err}
+
+
 # --------------------------------------------------------------- main path
 def make_data(device):
     x, y = syn.make_image_data(gen(device, SEED), IMAGES, "mnist", noise=1.3)
@@ -642,7 +838,240 @@ def main_path(device):
         print(f"{label}: steady seconds per round {steady[label]}")
         if label in ("bidir-int8", "bidir-sign-topk-int4"):
             profile_round(engine, state, data, device, steady[label])
+
+    # the virtual-time scheduler (fig_sched's traffic: int8 uplinks, the
+    # straggler profile); every dispatch is one batched client step
+    int8 = CommConfig(compressor="int8")
+    E = SCHED_EVENTS
+    chunked = -(-CLIENTS // 8) + (E["chunk8"] - 1) * -(-S // 8)
+    sched_phases = [  # (label, SchedConfig, RobustConfig, events, launches)
+        ("sched-sync-int8", SchedConfig(discipline="sync", **STRAGGLER),
+         RobustConfig(), E["sync"],
+         expect(sophia_update_batched=J * E["sync"],
+                quant_roundtrip_batched=E["sync"])),
+        # one K=16 stale accumulate per event; the cohort of 32 goes out
+        # at version 0, 16 clients after every event but the last
+        ("sched-semisync-int8",
+         SchedConfig(discipline="semisync", buffer_size=S, **STRAGGLER),
+         RobustConfig(), E["semisync"],
+         expect(sophia_update_batched=J * E["semisync"],
+                quant_roundtrip_batched=E["semisync"],
+                stale_accum_flat=E["semisync"])),
+        # the same in chunks of 8: 4 chunks at version 0, 2 per redispatch
+        ("sched-semisync-int8-chunk8",
+         SchedConfig(discipline="semisync", buffer_size=S, dispatch_chunk=8,
+                     **STRAGGLER),
+         RobustConfig(), E["chunk8"],
+         expect(sophia_update_batched=J * chunked,
+                quant_roundtrip_batched=chunked,
+                stale_accum_flat=E["chunk8"])),
+        # one N=1 dispatch and one K=1 accumulate per event
+        ("sched-async-int8",
+         SchedConfig(discipline="async", staleness_power=0.5, **STRAGGLER),
+         RobustConfig(), E["async"],
+         expect(sophia_update_batched=J * E["async"],
+                quant_roundtrip_batched=E["async"],
+                stale_accum_flat=E["async"])),
+        # the scale attack under norm-clip: one K=16 robust combine (trim
+        # 0, scales from the clip) per event
+        # (fault seed 1: under seed 0 the byzantine draw is the first six
+        # of the straggler draw's permutation, so none would arrive)
+        ("sched-semisync-normclip",
+         SchedConfig(discipline="semisync", buffer_size=S, **STRAGGLER),
+         RobustConfig(aggregator="norm_clip", clip_norm=CLIP_NORM,
+                      attack="scale", seed=1, **BYZ), E["normclip"],
+         expect(sophia_update_batched=J * E["normclip"],
+                quant_roundtrip_batched=E["normclip"],
+                robust_agg_flat=E["normclip"])),
+    ]
+    for label, sched, robust, events, want in sched_phases:
+        fed = FedConfig(strategy="parallel", comm=int8, sched=sched,
+                        robust=robust, **base)
+        secs, losses, state = drive_sched(label, mlp, fed, data, events,
+                                          device, want,
+                                          attacked=robust.attack != "none")
+        record(label, [secs])
+        if sched.dispatch_chunk:
+            chunk_band(label, mlp, fed, data, events, device, state)
+        # the JAX package's loss falls in these phases at this config (its
+        # async event losses do not: one client each, non-IID)
+        if sched.discipline != "async" and not losses[-1] < losses[0]:
+            raise SystemExit(f"{label}: local loss did not fall: {losses}")
+
+    # the adversarial fleet (fig_robust's traffic: 20% byzantine clients
+    # on a Dirichlet(0.1) partition, equalized)
+    skew = dirichlet_data(device, data)
+    RR = ROBUST_ROUNDS
+    trimmed = RobustConfig(aggregator="trimmed_mean", trim_fraction=0.25,
+                           attack="sign_flip", **BYZ)
+    median = RobustConfig(aggregator="coordinate_median", attack="sign_flip",
+                          **BYZ)
+    robust_phases = [  # (label, strategy, comm, robust, rounds, launches)
+        ("robust-direct-trimmed", "parallel", CommConfig(), trimmed, RR,
+         expect(sophia_update_batched=J * RR, robust_agg_flat=RR)),
+        ("robust-direct-median", "parallel", CommConfig(), median, RR,
+         expect(sophia_update_batched=J * RR, robust_agg_flat=RR)),
+        ("robust-direct-median sequential", "sequential", CommConfig(),
+         median, 1,
+         expect(sophia_update_flat=CLIENTS * J, robust_agg_flat=1)),
+        ("robust-comm-int8-randomwire", "parallel",
+         CommConfig(compressor="int8", participation=0.5),
+         RobustConfig(aggregator="trimmed_mean", trim_fraction=0.25,
+                      attack="random_wire", **BYZ), RR,
+         expect(sophia_update_batched=J * RR, quant_roundtrip_batched=RR,
+                robust_agg_flat=RR)),
+    ]
+    for label, strategy, comm, robust, rounds, want in robust_phases:
+        fed = FedConfig(strategy=strategy, comm=comm, robust=robust, **base)
+        engine, state, losses, secs = drive(label, mlp, fed, skew, rounds,
+                                            device, want)
+        record(label, secs)
+        trims = {K: robust_trim(robust, K) for K in (CLIENTS, S)}
+        print(f"{label}: steady seconds per round {steady[label]}; "
+              f"trim per side at K=32 / 16: {trims}")
+        # the JAX package's loss falls in each multi-round phase here
+        if rounds > 1 and not losses[-1] < losses[0]:
+            raise SystemExit(f"{label}: local loss did not fall: {losses}")
+
+    label = "sophia-pytree MLP-128"
+    secs = drive_pytree(label, device, data,
+                        expect(sophia_fused_step=J, sophia_update_flat=J))
+    record(label, [secs])
     return launches, steady
+
+
+def robust_trim(robust, K):
+    return (resolve(robust, K), trim_count(robust, K))
+
+
+def dirichlet_data(device, data):
+    """The main path's images over a Dirichlet(0.1) label partition of
+    the 32 clients (`repro_torch.data.partition`), equalized to the
+    engine's fixed per-client matrix, as fig_robust builds its skewed
+    fleet."""
+    x, y, _ = data
+    ragged = tpart.dirichlet_label_partition(y.cpu().numpy(), CLIENTS,
+                                             DIRICHLET_ALPHA, SEED)
+    part = tpart.equalize(ragged, IMAGES // CLIENTS, SEED)
+    train_idx, _ = syn.train_test_split(part)
+    conc = tpart.label_concentration(tpart.label_marginals(
+        y.cpu().numpy(), ragged, 10))
+    print(f"Dirichlet({DIRICHLET_ALPHA}) partition: label concentration "
+          f"{conc} (IID 0.1), {train_idx.shape[1]} train samples each")
+    return x, y, train_idx
+
+
+def drive_sched(label, task, fed, data, events, device, want,
+                attacked=False):
+    """One scheduler phase: ``events`` aggregation events of a
+    `VirtualScheduler` run (donated state, batches per server version),
+    with every launch count set to 0 just before it and read just
+    after; an ``attacked`` run must fold byzantine arrivals in.  Returns
+    host seconds per event (the run ends in a device synchronise) and
+    the event losses."""
+    x, y, train_idx = data
+    engine = FedEngine(task, fed, device=device)
+    state = engine.init(gen(device, SEED + 3))
+    sched = VirtualScheduler(
+        engine, lambda v: syn.client_batches(gen(device, SEED + 100 + v), x,
+                                             y, train_idx, BATCH),
+        donate=True)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, trace = sched.run(state, events, gen(device, SEED + 1000))
+    sync()
+    secs = (time.perf_counter() - t0) / events
+    got = launch_counts()
+    losses = [e.loss for e in trace.events]
+    print(f"{label}: event losses {losses}")
+    print(f"{label}: virtual seconds {trace.final_time}, wire bytes "
+          f"{trace.total_bytes}, staleness histogram "
+          f"{trace.staleness_hist()}, clients per event "
+          f"{[len(e.clients) for e in trace.events]}, aggregator "
+          f"{sorted({e.aggregator for e in trace.events})}, byzantine "
+          f"arrivals {sum(len(e.byzantine) for e in trace.events)}")
+    print(f"{label}: host seconds per event {secs}")
+    print(f"{label}: launches {got}")
+    if got != want:
+        raise SystemExit(f"{label}: launches {got}, want {want}")
+    if attacked and not any(e.byzantine for e in trace.events):
+        raise SystemExit(f"{label}: no byzantine arrival was folded in")
+    if len(trace.events) != events or not all(np.isfinite(losses)):
+        raise SystemExit(f"{label}: {len(trace.events)} events, losses "
+                         f"{losses}")
+    params = engine.unpack_params(state)
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise SystemExit(f"{label}: non-finite parameters after the run")
+    return secs, losses, state
+
+
+def chunk_band(label, task, fed, data, events, device, chunked):
+    """The chunked run's final state against the same run unchunked, on
+    the card (bitwise on the CPU: cuBLAS may choose another algorithm
+    for a batch of 8 than for one of 16 or 32, and an int8 floor that
+    flips moves a coordinate by a quant step).  Reports the band."""
+    x, y, train_idx = data
+    plain = dataclasses.replace(fed, sched=dataclasses.replace(
+        fed.sched, dispatch_chunk=0))
+    engine = FedEngine(task, plain, device=device)
+    sched = VirtualScheduler(
+        engine, lambda v: syn.client_batches(gen(device, SEED + 100 + v), x,
+                                             y, train_idx, BATCH),
+        donate=True)
+    state, _ = sched.run(engine.init(gen(device, SEED + 3)), events,
+                         gen(device, SEED + 1000))
+    want, got = state_buffers(state), state_buffers(chunked)
+    band = {}
+    for name, w in want.items():
+        diff = np.abs(got[name] - w)
+        band[name] = (int((diff > 0).sum()), float(diff.max()),
+                      float((diff / np.maximum(np.abs(w), 1e-30)).max()))
+    print(f"{label}: against the unchunked run on the card, (coordinates "
+          f"that differ, max |diff|, max relative diff) per buffer: {band}")
+
+
+def drive_pytree(label, device, data, want):
+    """J local steps of the pytree Sophia step (`core.sophia.sophia_step`,
+    whose CUDA route is the pack, the kernel, the unpack) on one
+    client's MLP-128 params, a GNB refresh every tau steps, with the
+    launch counts set to 0 just before and read just after.  Returns
+    host seconds per step."""
+    x, y, train_idx = data
+    task = MLPTask(hidden=mlp_mnist.HIDDEN)
+    params = task.init(gen(device, SEED + 3), device)
+    state = tsophia.init_state(params)
+    batches = syn.client_batches(gen(device, SEED + 100), x, y, train_idx,
+                                 BATCH)
+    batch = {k: v[0] for k, v in batches.items()}
+    noise = gen(device, SEED + 1000)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for j in range(LOCAL_ITERS):
+        pg = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = task.loss(pg, batch)
+        grads = dict(zip(pg, torch.autograd.grad(loss, list(pg.values()))))
+        do_h = j % TAU == 0
+        h_hat = (gnb_estimate(task, pg, batch, gumbel_noise(
+            noise, (BATCH, 10), device)) if do_h else
+            {k: torch.zeros_like(v) for k, v in params.items()})
+        params, state = tsophia.sophia_step(
+            {k: v.detach() for k, v in params.items()}, grads, state,
+            h_hat, do_h, lr=SOPHIA_LR, **HP)
+        losses.append(float(loss.detach()))
+    sync()
+    secs = (time.perf_counter() - t0) / LOCAL_ITERS
+    got = launch_counts()
+    print(f"{label}: losses {losses}; host seconds per step {secs}")
+    print(f"{label}: launches {got}")
+    if got != want:
+        raise SystemExit(f"{label}: launches {got}, want {want}")
+    if not all(np.isfinite(losses)) or not all(
+            bool(torch.isfinite(v).all()) for v in params.values()):
+        raise SystemExit(f"{label}: non-finite loss or parameters")
+    return secs
 
 
 # ------------------------------------------------------- small-round check
@@ -837,6 +1266,131 @@ def small_comm_rounds(device, label, comm, strategy, resync):
           f"(flips per buffer, rounds 1-2): {flips}")
 
 
+def small_sched_draws(version, ids, rows):
+    """Injected randomness of the small scheduler runs, from numpy: per
+    dispatch group the gumbel noise ``(N, J, B, 10)`` and the int8
+    uplink's U[0, 1) noise ``(N, rows, 1024)``, the same on both
+    devices."""
+    s = SMALL
+    if ids is None:
+        return {}
+    rs = np.random.default_rng([SEED, 900, version] + list(ids))
+    u = rs.uniform(size=(len(ids), s["iters"], s["batch"], 10))
+    return {"gumbel": (-np.log(-np.log(np.maximum(u, 1e-30)))).astype(
+                np.float32),
+            "uplink": rs.uniform(size=(len(ids), rows, 1024)).astype(
+                np.float32)}
+
+
+def small_sched_check(device):
+    """A small semisync run (buffer 2, straggler profile) and a small
+    async run (lognormal latencies, stale arrivals) on the card against
+    the same runs on the CPU, with the same draws: every field of every
+    event and dispatch record equal exactly but the losses (within the
+    small band), the final state within the small band but for at most
+    SMALL_MAX_FLIPS coordinates per buffer, each within one quant step
+    (`ScaleProbe`)."""
+    s = SMALL
+    task, x, y, part, init = small_setup()
+    for label, sched, events in (
+            ("semisync", SchedConfig(discipline="semisync", buffer_size=2,
+                                     **STRAGGLER), 4),
+            ("async", SchedConfig(discipline="async",
+                                  latency_profile="lognormal", seed=3), 6)):
+        fed = FedConfig(num_clients=s["clients"], local_iters=s["iters"],
+                        tau=s["tau"], lr=0.02, comm=CommConfig(
+                            compressor="int8"), sched=sched)
+        out, steps = {}, {}
+        for dev in ("cpu", device):
+            engine = FedEngine(task, fed, device=dev)
+            state = engine.init_from_params({k: v.to(dev)
+                                             for k, v in init.items()})
+            rows = engine.runtime_for(state["params"]).spec.rows
+            batches = {}
+
+            def batch_fn(v, dev=dev):
+                if v not in batches:
+                    b = syn.client_batches(gen("cpu", 10 + v), x, y, part,
+                                           s["batch"])
+                    batches[v] = {k: t.to(dev) for k, t in b.items()}
+                return batches[v]
+            with ScaleProbe(fed.comm) as probe:
+                out[str(dev)] = VirtualScheduler(engine, batch_fn).run(
+                    state, events, draws=lambda v, ids, rows=rows:
+                    small_sched_draws(v, ids, rows))
+            for k, v in probe.steps.items():
+                steps[k] = max(steps.get(k, 0.0), v)
+        (cpu_state, cpu_trace), (card_state, card_trace) = (
+            out["cpu"], out[str(device)])
+        crec, grec = cpu_trace.to_records(), card_trace.to_records()
+        for c, g in zip(crec, grec):
+            cl, gl = c.pop("loss", None), g.pop("loss", None)
+            if c != g or (cl is not None and not np.isclose(
+                    gl, cl, rtol=SMALL_RTOL, atol=SMALL_ATOL)):
+                raise SystemExit(f"small {label} run: record {g} (loss "
+                                 f"{gl}) differs from the CPU's {c} "
+                                 f"(loss {cl})")
+        if len(crec) != len(grec):
+            raise SystemExit(f"small {label} run: {len(grec)} records, CPU "
+                             f"{len(crec)}")
+        want, got = state_buffers(cpu_state), state_buffers(card_state)
+        counts = {}
+        for name, w in want.items():
+            band = SMALL_ATOL + SMALL_RTOL * np.abs(w)
+            diff = np.abs(got[name] - w)
+            bad = diff > band
+            counts[name] = int(bad.sum())
+            step = sum(steps.get(st, 0.0) for st in STEPS_OF[name])
+            if counts[name] > SMALL_MAX_FLIPS or not np.all(
+                    diff[bad] <= step + band[bad]):
+                raise SystemExit(f"small {label} run: {name} has "
+                                 f"{counts[name]} coordinates outside the "
+                                 f"band, largest {float(diff.max())}")
+        print(f"small {label} run ({events} events, staleness "
+              f"{card_trace.staleness_hist()}): records equal the CPU's, "
+              f"state within rtol={SMALL_RTOL} atol={SMALL_ATOL} but for "
+              f"coordinates one quant step off: {counts}")
+
+
+def small_robust_check(device):
+    """Two small direct rounds with a 25% sign-flip fleet under a
+    trimmed mean (C=4: trim 1), parallel and sequential, on the card
+    against the CPU: same weights, batches and GNB noise; within the
+    small band."""
+    s = SMALL
+    task, x, y, part, init = small_setup()
+    robust = RobustConfig(aggregator="trimmed_mean", trim_fraction=0.25,
+                          attack="sign_flip", attack_fraction=0.25)
+    for strategy in ("parallel", "sequential"):
+        fed = FedConfig(num_clients=s["clients"], local_iters=s["iters"],
+                        tau=s["tau"], lr=0.02, strategy=strategy,
+                        robust=robust)
+        out = {}
+        for dev in ("cpu", device):
+            engine = FedEngine(task, fed, device=dev)
+            state = engine.init_from_params(
+                {k: v.to(dev) for k, v in init.items()})
+            losses = []
+            for r in range(s["rounds"]):
+                b = syn.client_batches(gen("cpu", 10 + r), x, y, part,
+                                       s["batch"])
+                state, metrics = engine.round(
+                    state, {k: v.to(dev) for k, v in b.items()},
+                    gumbel=torch.tensor(small_noise(r, s), device=dev))
+                losses.append(float(metrics["loss"]))
+            out[str(dev)] = (losses, engine.pack_state(state)["params"].cpu(),
+                             state["client_opt"].m.cpu())
+        for what, a, b in zip(("loss", "params", "m"), out[str(device)],
+                              out["cpu"]):
+            np.testing.assert_allclose(
+                np.asarray(a), np.asarray(b), rtol=SMALL_RTOL,
+                atol=SMALL_ATOL,
+                err_msg=f"small robust {strategy} round: {what}")
+        print(f"small robust {strategy} rounds (sign-flip 1 of 4, trimmed "
+              f"mean): card agrees with the CPU within rtol={SMALL_RTOL} "
+              f"atol={SMALL_ATOL}")
+
+
 # ------------------------------------------------------------------ timing
 def host_ms(fn, launches=TIMED_LAUNCHES) -> float:
     """Host milliseconds per call, back to back, synchronised at the end:
@@ -907,29 +1461,39 @@ def time_blocking_ms(fn, calls=TIMED_CHUNK):
 
 def bound(ins, outs_like, ops_per_coord):
     """Least time for one call: the larger of bytes over HBM rate and
-    fp32 operations over the fp32 peak.  Each input read once, each
-    output written once (a shared operand counts once)."""
+    fp32 operations over the rate of fp32 instructions that are not
+    FMAs.  Each input read once, each output written once (a shared
+    operand counts once)."""
     nbytes = sum(x.numel() * x.element_size() for x in ins)
     nbytes += sum(x.numel() * x.element_size() for x in outs_like)
     ops = ops_per_coord * outs_like[0].numel()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes)
 
 
-def time_pair(name, kern, plain, ins, outs_like, ops_per_coord):
+def time_pair(name, kern, plain, ins, outs_like, ops_per_coord,
+              plain_chunk=TIMED_CHUNK, kernel_chunk=TIMED_CHUNK):
     """Device ms of kernel and plain version in turns (plain, kernel,
-    kernel, plain), host ms per kernel call, and the bound."""
-    p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
-                      time_ms(plain))
+    kernel, plain), host ms per kernel call, and the bound.  A plain
+    version of many launches is queued ``plain_chunk`` calls at a time
+    (a kernel entry of costly host work ``kernel_chunk``), so that each
+    chunk's enqueue stays within the sleep and within the launch queue
+    (past about a thousand pending launches the host blocks behind the
+    sleep)."""
+    p1, k1, k2, p2 = (time_ms(plain, chunk=plain_chunk),
+                      time_ms(kern, chunk=kernel_chunk),
+                      time_ms(kern, chunk=kernel_chunk),
+                      time_ms(plain, chunk=plain_chunk))
     host = host_ms(kern)
     b_ms, b_by, nbytes = bound(ins, outs_like, ops_per_coord)
+    ops_ms = ops_per_coord * outs_like[0].numel() / FP32_OPS_PER_S * 1e3
     k = (k1 + k2) / 2
     shape = list(outs_like[0].shape)
     print(f"{name} {tuple(shape)} fp32: device kernel {k1} / {k2} ms, "
           f"plain {p1} / {p2} ms, bound {b_ms} ms ({b_by}, {nbytes} "
-          f"bytes); kernel at {nbytes / k / 1e9} TB/s, {b_ms / k} of the "
+          f"bytes; operations {ops_ms} ms); kernel at {nbytes / k / 1e9} TB/s, {b_ms / k} of the "
           f"bound; host {host} ms per call")
     return dict(ms=k, plain_ms=(p1 + p2) / 2, host_ms=host, bound_ms=b_ms,
                 bound_by=b_by, shape=shape)
@@ -1014,6 +1578,84 @@ def time_kernels(device):
         QUANT_OPS["broadcast"])
     del th, sv, ef, u, s, st
     out.update(time_biased(device))
+    out.update(time_slice4(device))
+    return out
+
+
+def timing_stacks(K, device, seed, l2_bytes=50 * 2 ** 20):
+    """Copies of a fp32 ``(K, 116, 1024)`` stack, enough of them to
+    exceed the 50 MB L2 together, so that launches that walk them in turn
+    read from device memory; fp32 weights and scales as `agg_inputs`."""
+    g = gen(device, seed)
+    one = K * MLP_PACKED[0] * MLP_PACKED[1] * 4
+    xs = [torch.randn((K,) + MLP_PACKED, generator=g, device=device)
+          for _ in range(l2_bytes // one + 2)]
+    w = 0.25 + 1.75 * torch.rand(K, generator=g, device=device)
+    sc = 0.5 + torch.rand(K, generator=g, device=device)
+    return xs, w, sc
+
+
+def time_slice4(device):
+    """Rows 3, 14 and 15 and their plain versions at the main path's
+    shapes, fp32: the stale accumulate at K=16 (semisync's buffer; the
+    row's headline) and K=1 (async), beside ``torch.tensordot(w, wires,
+    dims=1) * inv_norm``, the one library call of the same function (not
+    bitwise: cuBLAS's GEMV sums in its own order); the robust combine at
+    K=32 trim 8 (the trimmed mean of the direct phase; the headline),
+    K=32 trim 15 (the median), K=16 trim 4 (the comm round's trimmed
+    mean at S=16) and K=16 trim 0 with clip scales (norm-clip), beside
+    ``torch.sort(wires, dim=0)``, the sort the kernel avoids (no library
+    call computes the combine); the pytree step on the MLP-128 trees."""
+    out = {}
+    R, C = MLP_PACKED
+    agg_out = [torch.empty((R, C), device=device)]
+    for K in (16, 1):
+        xs, w, _ = timing_stacks(K, device, SEED + 500 + K)
+        # a one-element device tensor: the plain version would otherwise
+        # copy a host float to the card, which waits for the stream
+        inv = torch.tensor([inv_sum(w)], device=device)
+        n = len(xs)
+        t = time_pair(f"stale_accum_flat (K={K})",
+                      lambda i: tstale.stale_accum_flat(xs[i % n], w, inv),
+                      lambda i: kref.stale_accum_ref(xs[i % n], w, inv),
+                      [xs[0], w], agg_out, stale_ops(K), plain_chunk=10)
+        t["library_ms"] = time_ms(
+            lambda i: torch.tensordot(w, xs[i % n], dims=1) * inv)
+        print(f"stale_accum_flat (K={K}): torch.tensordot(w, wires, "
+              f"dims=1) * inv_norm {t['library_ms']} ms (not bitwise)")
+        out.setdefault("stale_accum_flat", t)
+        del xs
+    for K, trim, clip in ((32, 8, False), (32, 15, False), (16, 4, False),
+                          (16, 0, True)):
+        xs, w, sc = timing_stacks(K, device, SEED + 600 + K + trim)
+        if not clip:
+            sc = torch.ones_like(sc)
+        n = len(xs)
+        t = time_pair(f"robust_agg_flat (K={K}, trim={trim}"
+                      f"{', clip scales' if clip else ''})",
+                      lambda i: trobust.robust_agg_flat(xs[i % n], w, sc,
+                                                        trim=trim),
+                      lambda i: kref.robust_agg_ref(xs[i % n], w, sc,
+                                                    trim=trim),
+                      [xs[0], w, sc], agg_out, robust_ops(K, trim),
+                      plain_chunk=2)
+        sort_ms = time_ms(lambda i: torch.sort(xs[i % n], dim=0))
+        t["library_ms"] = None
+        print(f"robust_agg_flat (K={K}, trim={trim}): torch.sort(wires, "
+              f"dim=0), the sort it avoids, {sort_ms} ms")
+        out.setdefault("robust_agg_flat", t)
+        del xs
+    # 24 sets of the five MLP-128 trees (57 MB) walked in turn
+    sets = [mlp_trees(device, SEED + 700 + k) for k in range(24)]
+    lr = torch.tensor(LR)
+    leaves = [v for tree in sets[0] for v in tree.values()]
+    n = sum(v.numel() for v in sets[0][0].values())
+    flat_like = [torch.empty(n, device=device)] * 3
+    out["sophia_fused_step"] = time_pair(
+        "sophia_fused_step (MLP-128 pytree)",
+        lambda i: ops.sophia_fused_step(*sets[i % 24], 1, lr=lr, **HP),
+        lambda i: fused_step_plain(sets[i % 24], 1, lr), leaves, flat_like,
+        SOPHIA_OPS, plain_chunk=5, kernel_chunk=10)
     return out
 
 
@@ -1135,9 +1777,13 @@ def main() -> None:
     err = check_kernels(device)
     err.update(check_quant_kernels(device))
     err.update(check_biased_kernels(device))
+    err.update(check_agg_kernels(device))
+    err.update(check_fused_step(device))
 
     small_round_check(device)
     small_comm_round_check(device)
+    small_sched_check(device)
+    small_robust_check(device)
     launches, steady = main_path(device)
     print(f"steady seconds per round by path: {json.dumps(steady)}")
     timing = time_kernels(device)
@@ -1150,14 +1796,17 @@ def main() -> None:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "host_ms": t["host_ms"], "scalar_ms": t.get("scalar_ms"),
             "shape": t["shape"], "bitwise_vs_plain": True})
-    print("library_ms: none; no single PyTorch call computes the Sophia "
-          "update or a stochastic-rounding quantize round-trip "
-          "(fake_quantize_per_channel_affine rounds to nearest, without "
-          "noise), nor SignSGD's round-trip (torch.sign gives 0 for NaN "
-          "and +0 for -0) or top-k's threshold (a compare and a select)")
+    print("library_ms: torch.tensordot(w, wires, dims=1) * inv_norm for "
+          "stale_accum_flat (not bitwise); none elsewhere: no single "
+          "PyTorch call computes the Sophia update or a stochastic-rounding "
+          "quantize round-trip (fake_quantize_per_channel_affine rounds to "
+          "nearest, without noise), nor SignSGD's round-trip (torch.sign "
+          "gives 0 for NaN and +0 for -0), top-k's threshold (a compare "
+          "and a select) or the trimmed / clipped combine (torch.sort "
+          "sorts, it does not trim or weight)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""PyTorch / CUDA twin of `repro`: the synchronous Fed-Sophia round on
-one NVIDIA H100, with the fused Sophia update as a hand-written CUDA
-kernel for ``sm_90a``.
+"""PyTorch / CUDA twin of `repro` on one NVIDIA H100: the Fed-Sophia
+rounds (direct and compressed), the virtual-time scheduler and the
+adversarial fleet, with every Pallas kernel of the JAX package as a
+hand-written CUDA kernel for ``sm_90a``.
 
 The package imports torch, numpy and the standard library only — never
 JAX and nothing of the `repro` package.  Module names mirror `repro`'s,

@@ -3,10 +3,8 @@
 and `ObsConfig`, with the field names and defaults of the JAX
 package's ``configs/base.py``.
 
-The engine runs the direct path and the comm path with the
-`StochasticQuant` (int8/int4) compressors; `repro_torch.core.fed`
-raises `NotImplementedError` for every other setting, naming the
-ROADMAP item that ports it.
+`repro_torch.core.fed` raises `NotImplementedError` for the settings
+the port does not run yet, naming the ROADMAP item that ports each.
 """
 from __future__ import annotations
 
@@ -95,10 +93,19 @@ class CommConfig:
         return max(1, min(num_clients, s))
 
 
+#: Round disciplines of the virtual-time scheduler (repro_torch.sched).
+SCHED_DISCIPLINES = ("sync", "semisync", "async")
+
+#: Latency profiles of the virtual-time scheduler (repro_torch.sched).
+LATENCY_PROFILES = ("uniform", "straggler", "lognormal")
+
+
 @dataclass(frozen=True)
 class SchedConfig:
-    """Virtual-time round scheduling.  Consumed by the scheduler, not by
-    the engine; the scheduler is not ported yet."""
+    """Virtual-time round scheduling, driven by
+    `repro_torch.sched.VirtualScheduler`; the engine reads only
+    ``dispatch_chunk`` (client-batched steps of more clients than that
+    run as chunks of that many, then one tail)."""
     discipline: str = "sync"          # sync | semisync | async
     buffer_size: int = 0              # semisync: arrivals per aggregation
     staleness_power: float = 0.5      # arrival weight (1+tau)^-p
@@ -110,6 +117,17 @@ class SchedConfig:
     lognormal_sigma: float = 0.75     # lognormal: client-speed spread
     seed: int = 0                     # latency-sampling salt
     dispatch_chunk: int = 0           # 0 -> unchunked
+
+
+#: Robust server-side aggregators (repro_torch.robust): "mean" is the
+#: plain weighted-mean path; the others replace the combine of the
+#: (K, rows, cols) arrival stack.
+AGGREGATORS = ("mean", "trimmed_mean", "coordinate_median", "norm_clip")
+
+#: Byzantine wire attacks of the fault-injection layer
+#: (repro_torch.robust): each transforms a malicious client's packed
+#: uplink buffer, keeping its shape and dtype.
+ATTACKS = ("none", "sign_flip", "scale", "random_wire")
 
 
 @dataclass(frozen=True)
@@ -132,8 +150,9 @@ class RobustConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """Structured telemetry.  ``probes`` (device-side Sophia health
-    metrics) is not ported yet."""
+    """Structured telemetry.  ``trace`` (per-dispatch trace contexts of
+    the scheduler) runs; ``probes`` (device-side Sophia health metrics)
+    is not ported yet and raises in the engine."""
     probes: bool = False
     trace: bool = False
     flush_every: int = 10

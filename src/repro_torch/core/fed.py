@@ -38,12 +38,19 @@ Python ints/bools, and lr is a 0-dim float32 CPU tensor, so no step
 reads the device.
 
 Randomness (the RNG seam).  The round's random inputs are the GNB's
-gumbel label noise, the participation sample and the U[0, 1) noise of
-each quantized stream.  `round` draws each from a `torch.Generator` on
-the device, or takes it injected (the tests inject the JAX package's own
-draws): ``gumbel`` as ``(C, draws, B, K)`` and ``comm_noise`` as a dict
-indexed by client id (see `round`).  Participant k gets client
-``ids[k]``'s draws.
+gumbel label noise, the participation sample, the U[0, 1) noise of
+each quantized stream and the gaussian of the ``random_wire`` attack.
+`round` draws each from a `torch.Generator` on the device, or takes it
+injected (the tests inject the JAX package's own draws): ``gumbel`` as
+``(C, draws, B, K)`` and ``comm_noise`` as a dict (see `round`).
+Participant k gets client ``ids[k]``'s draws.
+
+The adversarial fleet (`repro_torch.robust`): with a byzantine subset
+its rows of the aggregated stack are attacked, and a non-degenerate
+aggregator combines the stack through the robust-combine kernel; on the
+direct path both act on the contribution deltas (client model minus
+the round-start model).  A degenerate `RobustConfig` leaves the round on
+its mean path, bitwise.
 
 Settings outside the port so far raise `NotImplementedError`, naming the
 ROADMAP item that ports them.
@@ -63,22 +70,32 @@ from repro_torch.comm.compressors import (BIASED, StochasticQuant,
                                           wants_error_feedback)
 from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, flat_spec,
                                    pack, repack, unpack, with_cols, zeros)
-from repro_torch.configs.base import COMM_STREAMS, FedConfig, RobustConfig
+from repro_torch.configs.base import COMM_STREAMS, FedConfig
 from repro_torch.core.gnb import gnb_estimate
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
 from repro_torch.models.small import gumbel_noise
+from repro_torch.robust.aggregators import aggregate_stack, resolve
+from repro_torch.robust.attacks import (attack_wires, byzantine_mask,
+                                        wire_attack_active)
 
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1: {})"
 _COMPRESSORS = ("identity", "int8", "int4") + tuple(sorted(BIASED))
 
 
+def _not_ported(setting: str, item: str) -> NotImplementedError:
+    """The refusal of a setting the port does not run yet, naming the
+    ROADMAP item that ports it."""
+    return NotImplementedError(
+        f"{setting} is not ported yet (ROADMAP.md, queue 1, item "
+        f"{item!r})")
+
+
 def _check_slice(fed: FedConfig) -> None:
-    """Reject every setting the port does not run yet."""
+    """Reject the settings the port does not run yet
+    (`NotImplementedError`) and unknown ones (`ValueError`)."""
     if fed.optimizer in ("done", "fedadam", "fedyogi"):
-        raise NotImplementedError(
-            f"optimizer {fed.optimizer!r} "
-            + _ROADMAP.format("'engine: fedadam/fedyogi and DONE'"))
+        raise _not_ported(f"optimizer={fed.optimizer!r}",
+                          "engine: fedadam/fedyogi and DONE")
     if fed.optimizer not in ("fed_sophia", "fedavg"):
         raise ValueError(f"unknown optimizer {fed.optimizer!r}")
     if fed.strategy not in ("parallel", "sequential"):
@@ -100,27 +117,22 @@ def _check_slice(fed: FedConfig) -> None:
             "the hessian comm stream aggregates the Sophia h-EMA: it "
             "requires optimizer='fed_sophia' with "
             "persistent_client_state=True")
-    if fed.sched.dispatch_chunk > 0:
-        raise NotImplementedError(
-            "SchedConfig.dispatch_chunk > 0 is "
-            + _ROADMAP.format("'the scheduler'"))
-    if fed.robust != RobustConfig():
-        raise NotImplementedError(
-            "robust aggregation and attacks are "
-            + _ROADMAP.format("'the adversarial fleet'"))
+    if fed.sched.dispatch_chunk < 0:
+        raise ValueError(f"dispatch_chunk={fed.sched.dispatch_chunk} must "
+                         "be >= 0 (0: unchunked)")
+    # unknown aggregators and attacks raise ValueError here, not mid-round
+    resolve(fed.robust, fed.num_clients)
+    byzantine_mask(fed.robust, fed.num_clients)
     if fed.obs.probes:
-        raise NotImplementedError(
-            "ObsConfig.probes is " + _ROADMAP.format("'obs/'"))
+        raise _not_ported("ObsConfig.probes=True", "obs")
     if fed.grad_microbatches > 1:
-        raise NotImplementedError(
-            "grad_microbatches > 1 is "
-            + _ROADMAP.format("'engine: grad_microbatches'"))
+        raise _not_ported(f"grad_microbatches={fed.grad_microbatches}",
+                          "engine: grad_microbatches")
     for name in ("state_dtype", "moment_dtype", "hessian_dtype"):
         dt = getattr(comm, name) or comm.state_dtype
         if as_dtype(dt) != torch.float32:
-            raise NotImplementedError(
-                f"CommConfig.{name}={dt!r}: the resident dtype policy is "
-                + _ROADMAP.format("'resident dtype policy'"))
+            raise _not_ported(f"CommConfig.{name}={dt!r}",
+                              "resident dtype policy")
 
 
 class CommRuntime(NamedTuple):
@@ -317,12 +329,16 @@ class FedEngine:
           * ``gumbel``: the GNB noise, ``(C, J, B, K)`` for
             ``hessian_every_unit="step"`` (index j is local step j),
             ``(C, 1, B, K)`` for ``"round"``;
-          * ``comm_noise`` (comm path only): ``"participants"``, the S
-            sorted client ids (needed when S < C); per quantized stream
-            its U[0, 1) noise by client id, ``"uplink"`` ``(C, rows,
-            cols)``, ``"downlink"`` and ``"hessian"`` in their streams'
-            geometry; with the hessian stream, ``"server_hessian"``
-            ``(rows, cols)``, the server's curvature broadcast.
+          * ``comm_noise``: ``"participants"``, the S sorted client ids
+            (needed when S < C); per quantized stream its U[0, 1) noise
+            by client id, ``"uplink"`` ``(C, rows, cols)``,
+            ``"downlink"`` and ``"hessian"`` in their streams' geometry;
+            with the hessian stream, ``"server_hessian"`` ``(rows,
+            cols)``, the server's curvature broadcast; under the
+            ``random_wire`` attack, ``"attack"``, the gaussian of the
+            attacked stack by position, ``(C, rows, cols)`` on the
+            direct path and ``(S, rows, cols)`` on the comm path.  The
+            direct path reads only ``"attack"``.
 
         Resident state is updated in place — the Sophia m/h stacks, EF
         residuals and replicas included — the counterpart of the JAX
@@ -338,8 +354,10 @@ class FedEngine:
         rt = self.runtime_for(state["params"])
         if self.uses_direct_path():
             noise = self._gumbel_source(batches, generator, gumbel, None)
-            state, loss = self._round_direct(state, batches, noise,
-                                             round_idx, lr, rt.spec)
+            state, loss = self._round_direct(
+                state, batches, noise, self._attack_source(generator,
+                                                           comm_noise),
+                round_idx, lr, rt.spec)
         else:
             state, loss = self._round_comm(state, batches, generator,
                                            gumbel, comm_noise, round_idx,
@@ -400,6 +418,40 @@ class FedEngine:
                              "comm_noise['participants']")
         return participation_sample(generator, C, S).to(self.device)
 
+    def _attack_source(self, generator, comm_noise):
+        """``noise(shape)`` -> the ``random_wire`` gaussian of an
+        attacked stack: ``comm_noise["attack"]`` when injected (its
+        shape checked), else a draw from ``generator``."""
+        def take(shape):
+            if comm_noise is not None and "attack" in comm_noise:
+                u = torch.as_tensor(comm_noise["attack"]).to(self.device,
+                                                             torch.float32)
+                if tuple(u.shape) != tuple(shape):
+                    raise ValueError(f"comm_noise['attack'] has shape "
+                                     f"{tuple(u.shape)}, want "
+                                     f"{tuple(shape)}")
+                return u
+            if generator is None:
+                raise ValueError("the random_wire attack needs a generator "
+                                 "or injected comm_noise['attack']")
+            return torch.randn(tuple(shape), generator=generator,
+                               device=generator.device).to(self.device)
+        return take
+
+    def _combine_robust(self, wires, mask, attack_noise):
+        """The adversarial combine of a ``(K, rows, cols)`` stack: the
+        byzantine rows (``mask``) attacked, then the robust aggregate
+        (the plain mean when the aggregator resolves to it)."""
+        rb = self.fed.robust
+        K = int(wires.shape[0])
+        if wire_attack_active(rb, self.fed.num_clients):
+            noise = (attack_noise(wires.shape)
+                     if rb.attack == "random_wire" else None)
+            wires = attack_wires(rb, wires, mask, noise=noise)
+        return aggregate_stack(
+            rb, wires, torch.ones((K,), dtype=torch.float32,
+                                  device=wires.device), normalize=True)
+
     def _uniform_source(self, rt, generator, comm_noise, ids):
         """``noise(stream, clients)`` -> U[0, 1) noise of ``stream`` for
         ``clients`` (``slice(None)`` for the cohort, or one position);
@@ -451,8 +503,10 @@ class FedEngine:
             return u.to(self.device)
         return draw
 
-    def _round_direct(self, state, batches, noise, round_idx, lr, spec):
-        """Server model <- mean of client params, in wire layout."""
+    def _round_direct(self, state, batches, noise, attack_noise, round_idx,
+                      lr, spec):
+        """Server model <- mean of client params, in wire layout; the
+        adversarial fleet (module docstring) acts on the deltas."""
         fed = self.fed
         C = fed.num_clients
         params = state["params"]
@@ -460,26 +514,39 @@ class FedEngine:
         theta = (params.to(torch.float32) if packed
                  else pack(params, spec))
         opts = state.get("client_opt") if self._stateful() else None
+        rb = fed.robust
+        adversarial = (wire_attack_active(rb, C)
+                       or resolve(rb, C) != "mean")
 
         if fed.strategy == "parallel":
             new_t, new_opt, losses = self._local_update_flat_batched(
                 spec, theta, opts, batches, noise, round_idx, lr)
-            agg_flat = torch.mean(new_t, dim=0)
+            if not adversarial:
+                agg_flat = torch.mean(new_t, dim=0)
         else:
             agg_flat = torch.zeros_like(theta)
-            losses = []
+            losses, stack = [], []
             for i in range(C):
                 opt_i = (None if opts is None
                          else SophiaState(m=opts.m[i], h=opts.h[i]))
                 t_i, _, loss = self._local_update_flat(
                     spec, theta, opt_i, {k: v[i] for k, v in batches.items()},
                     lambda j, i=i: noise(i, j), round_idx, lr)
-                agg_flat = agg_flat + t_i / C
+                if adversarial:
+                    # trimming needs the whole cohort at once
+                    stack.append(t_i)
+                else:
+                    agg_flat = agg_flat + t_i / C
                 losses.append(loss)
             losses = torch.stack(losses)
+            if adversarial:
+                new_t = torch.stack(stack)
             # each client's m/h rows were updated in place in the stack
             new_opt = opts
 
+        if adversarial:
+            agg_flat = theta + self._combine_robust(
+                new_t - theta, byzantine_mask(rb, C), attack_noise)
         if packed:
             state = {**state, "params": agg_flat.to(params.dtype)}
         else:
@@ -520,6 +587,23 @@ class FedEngine:
         ef_g, dnm_g, dnef_g = take(ef), take(dn_model), take(dn_ef)
         batches_g = {k: take(v) for k, v in batches.items()}
 
+        # adversarial fleet: attacks act on the participants' uplink
+        # wires only; the replica correction and the hessian stream keep
+        # their participation means
+        rb = fed.robust
+        collect = wire_attack_active(rb, C) or resolve(rb, S) != "mean"
+        attack_noise = self._attack_source(generator, comm_noise)
+
+        def combine(wires):
+            if not collect:
+                return torch.sum(wires, dim=0) / S
+            # the participants' rows of the byzantine mask, gathered on
+            # the device (the host never reads the sampled ids)
+            byz = torch.as_tensor(byzantine_mask(rb, C), device=self.device)
+            return self._combine_robust(
+                wires, byz if ids is None else byz.index_select(0, ids),
+                attack_noise)
+
         if fed.strategy == "parallel":
             cohort = slice(None)
             (wires, stats, ef_new, opt_new, losses, dnm_new, dnef_new,
@@ -528,7 +612,7 @@ class FedEngine:
                 dnef_g, batches_g,
                 ClientNoise(lambda j: gnb(cohort, j),
                             lambda stream: uniform(stream, cohort)))
-            agg = torch.sum(wires, dim=0) / S
+            agg = combine(wires)
             wstat = torch.sum(stats) / S
             if rt.dn_on:
                 dn_mean = torch.sum(dnm_new, dim=0) / S
@@ -543,7 +627,7 @@ class FedEngine:
             if rt.h_on:
                 h_agg = zeros(rt.spec_h, device=self.device)
                 h_wstat = torch.zeros((), device=self.device)
-            losses = []
+            losses, stack = [], []
             for k in range(S):
                 opt_k = (None if opts_g is None
                          else SophiaState(m=opts_g.m[k], h=opts_g.h[k]))
@@ -556,7 +640,11 @@ class FedEngine:
                     {n: v[k] for n, v in batches_g.items()},
                     ClientNoise(lambda j, k=k: gnb(k, j),
                                 lambda stream, k=k: uniform(stream, k)))
-                agg = agg + wire / S
+                if collect:
+                    # robust or attacked: trimming needs the whole cohort
+                    stack.append(wire)
+                else:
+                    agg = agg + wire / S
                 wstat = wstat + stat / S
                 # client k's rows are read only by its own step: its new
                 # rows go straight back into the (gathered) stacks
@@ -571,6 +659,8 @@ class FedEngine:
                     h_wstat = h_wstat + h_stat_k / S
                 losses.append(loss)
             losses = torch.stack(losses)
+            if collect:
+                agg = combine(torch.stack(stack))
             # the m/h rows were updated in place in the (gathered) stacks
             ef_new, opt_new, dnm_new, dnef_new = ef_g, opts_g, dnm_g, dnef_g
 
@@ -654,7 +744,16 @@ class FedEngine:
         stage — downlink broadcast, each local Sophia iteration, uplink
         encode, the hessian round-trip — is ONE client-batched kernel
         launch.  Returns the 9-tuple of `comm_client_step`, stacked
-        along clients."""
+        along clients.
+
+        With ``SchedConfig.dispatch_chunk`` set below N the cohort runs
+        as chunks of that many clients, then one tail
+        (`_comm_client_step_chunked`)."""
+        chunk = self.fed.sched.dispatch_chunk
+        if 0 < chunk < int(batches["y"].shape[0]):
+            return self._comm_client_step_chunked(
+                rt, theta, theta_dn, round_idx, lr, opts, efs, dnms, dnefs,
+                batches, noise, chunk)
         if rt.dn_on:
             dnms, dnefs = downlink.broadcast_batched(
                 rt.comp_dn, noise.uniform("downlink"), theta_dn, dnms,
@@ -674,6 +773,57 @@ class FedEngine:
                 repack(opt.h, rt.spec, rt.spec_h).to(torch.float32))
         return (xhat, stats, ef_new, opt, losses,
                 dnms if rt.dn_on else None, dnefs, h_hat, h_stats)
+
+    def _comm_client_step_chunked(self, rt: CommRuntime, theta, theta_dn,
+                                  round_idx, lr, opts, efs, dnms, dnefs,
+                                  batches, noise: ClientNoise, chunk: int):
+        """`comm_client_step_batched` over an N-client cohort as chunks
+        of ``chunk`` clients (full chunks, then one tail), each one
+        batched step over its rows; the outputs are concatenated along
+        clients.  Every stage is elementwise per client row, so the
+        result is the unchunked step's.  The cohort's noise is drawn
+        whole, in the unchunked step's order, at its first use (a
+        generator's stream is consumed as without chunking), and each
+        chunk reads its rows.  ``opts`` is updated in place through
+        views of its rows."""
+        n = int(batches["y"].shape[0])
+        gumbel: Dict[int, torch.Tensor] = {}
+        uniform: Dict[str, Optional[torch.Tensor]] = {}
+
+        def whole_gumbel(j):
+            if j not in gumbel:
+                gumbel[j] = noise.gumbel(j)
+            return gumbel[j]
+
+        def whole_uniform(stream):
+            if stream not in uniform:
+                uniform[stream] = noise.uniform(stream)
+            return uniform[stream]
+
+        outs = []
+        for lo in range(0, n, chunk):
+            rows = slice(lo, min(lo + chunk, n))
+
+            def take(x, rows=rows):
+                return None if x is None else x[rows]
+
+            opts_c = (None if opts is None
+                      else SophiaState(m=opts.m[rows], h=opts.h[rows]))
+            outs.append(self.comm_client_step_batched(
+                rt, theta, theta_dn, round_idx, lr, opts_c, take(efs),
+                take(dnms), take(dnefs),
+                {k: v[rows] for k, v in batches.items()},
+                ClientNoise(lambda j, rows=rows: whole_gumbel(j)[rows],
+                            lambda st, take=take: take(whole_uniform(st)))))
+
+        def cat(parts):
+            if parts[0] is None:
+                return None
+            if isinstance(parts[0], SophiaState):
+                return SophiaState(m=torch.cat([p.m for p in parts]),
+                                   h=torch.cat([p.h for p in parts]))
+            return torch.cat(parts)
+        return tuple(cat(list(p)) for p in zip(*outs))
 
     # ------------------------------------------------- one client, dispatch
     def _local_update_flat(self, spec, theta, opt, batch, noise, round_idx,
@@ -772,13 +922,15 @@ class FedEngine:
 
     @staticmethod
     def _cohort_start(theta, n: int) -> torch.Tensor:
-        """A writable ``(n, rows, cols)`` copy of the start model(s): an
-        expand() view has stride 0, and the kernel writes the stack in
-        place; a per-client stack (the replicas) is not the loop's to
-        write either."""
+        """A writable ``(n, rows, cols)`` copy of the start model(s): the
+        kernel writes the stack in place, and neither the shared model
+        nor a per-client stack (the replicas) is the loop's to write.  A
+        new tensor in every case: ``expand(...).contiguous()`` of one
+        client (n=1) would be a view of ``theta`` itself, as a size-1
+        axis counts as contiguous whatever its stride."""
         if theta.ndim == 3:
             return theta.clone()
-        return theta.expand((n,) + tuple(theta.shape)).contiguous()
+        return theta.unsqueeze(0).repeat(n, 1, 1)
 
     def _local_sophia_flat_batched(self, spec, theta, m, h, batches,
                                    round_idx, noise, lr):

@@ -7,7 +7,8 @@ or raises — for CUDA tensors.  Sources live in ``csrc/`` and are built
 at first use (`build`).
 
 ``KERNELS`` is the JAX package's registry of the eight kernel families,
-each with whether the port has it yet.
+each with whether the port has it (all eight since the scheduler's and
+the fleet's kernels landed).
 """
 KERNELS = {
     "quant_roundtrip": True,
@@ -16,6 +17,6 @@ KERNELS = {
     "sign_roundtrip": True,
     "topk_threshold": True,
     "sophia_update": True,
-    "stale_accum": False,
-    "robust_agg": False,
+    "stale_accum": True,
+    "robust_agg": True,
 }

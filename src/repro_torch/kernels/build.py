@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-fmad=false", "-Xptxas", "-v")
 
 #: the kernel sources of the port, one shared library each
-SOURCES = ("sophia_update", "quantize")
+SOURCES = ("sophia_update", "quantize", "stale_accum", "robust_agg")
 
 #: runtime dtype codes of the kernels' load/store helpers
 #: (``csrc/dtype_io.cuh``)

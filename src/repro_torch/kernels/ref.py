@@ -94,3 +94,67 @@ def topk_threshold_ref(x, thr):
     ``thr`` a scalar, or ``(N,)`` per client."""
     xf = x.to(torch.float32)
     return torch.where(xf.abs() >= _per_client(thr, x), xf, 0.0).to(x.dtype)
+
+
+def stale_accum_ref(wires, weights, inv_norm):
+    """Staleness-weighted accumulate of K arrival wires, fp32 out:
+    ``inv_norm * (((0 + w_0*x_0) + w_1*x_1) + ...)``, the sum taken in
+    ascending k as the kernel takes it.  ``wires`` ``(K, R, C)`` in any
+    kernel dtype (upcast to fp32), ``weights`` ``(K,)``, ``inv_norm`` a
+    scalar or a one-element tensor."""
+    w = torch.as_tensor(weights, dtype=torch.float32, device=wires.device)
+    s = torch.as_tensor(inv_norm, dtype=torch.float32,
+                        device=wires.device).reshape(())
+    acc = torch.zeros(wires.shape[1:], dtype=torch.float32,
+                      device=wires.device)
+    for k in range(wires.shape[0]):
+        acc = acc + w[k] * wires[k].to(torch.float32)
+    return s * acc
+
+
+#: the fill of removed entries in the survivor search (``-FLT_MAX``): a
+#: surviving ``-inf`` loses to it, so a pass may hit a removed entry
+_BIG = torch.finfo(torch.float32).max
+
+
+def survivor_mask(xs, trim: int):
+    """``(K, R, C)`` bool survivors of ``xs`` (fp32) after removing
+    ``trim`` extremes per side per coordinate, one occurrence per pass:
+    ``trim`` argmax passes over ``xs``, then ``trim`` over ``-xs``, each
+    over the survivors with removed entries filled with ``-FLT_MAX``.
+    ``torch.argmax`` takes the first index among equal maxima and counts
+    a NaN as the maximum (the first NaN wins), as ``jnp.argmax`` does."""
+    mask = torch.ones(xs.shape, dtype=torch.bool, device=xs.device)
+    if trim == 0:
+        return mask
+    iota = torch.arange(xs.shape[0], device=xs.device).reshape(
+        (-1,) + (1,) * (xs.ndim - 1))
+    for sign in (1.0, -1.0):
+        for _ in range(trim):
+            cand = torch.where(mask, sign * xs, -_BIG)
+            hit = torch.argmax(cand, dim=0)
+            mask = mask & (iota != hit.unsqueeze(0))
+    return mask
+
+
+def robust_agg_ref(wires, weights, scales, *, trim: int,
+                   normalize: bool = True):
+    """Sort-free trimmed / clipped weighted combine of K arrival wires,
+    fp32 out.  ``xs_k = scales_k * x_k``; survivors by `survivor_mask`;
+    ``num = sum_k xs_k * wm_k`` over ALL k in ascending order, with
+    ``wm_k = weights_k`` for a survivor and 0 for a removed entry (so a
+    removed inf or NaN still makes the sum NaN, as in the JAX package);
+    ``num / sum_k wm_k`` when ``normalize``."""
+    K = wires.shape[0]
+    dev = wires.device
+    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    s = torch.as_tensor(scales, dtype=torch.float32, device=dev)
+    xs = s.reshape(K, 1, 1) * wires.to(torch.float32)
+    mask = survivor_mask(xs, trim)
+    wm = torch.where(mask, w.reshape(K, 1, 1), 0.0)
+    num = torch.zeros(wires.shape[1:], dtype=torch.float32, device=dev)
+    den = torch.zeros_like(num)
+    for k in range(K):
+        num = num + xs[k] * wm[k]
+        den = den + wm[k]
+    return num / den if normalize else num

@@ -49,6 +49,16 @@ SCALE_RTOL = 1e-6
 COMPRESSORS = ("identity", "int8", "int4", "topk", "signsgd")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """Leave the process as this module found it: the JAX package's
+    jitted Pallas kernels traced here would otherwise stay in jax's
+    caches for other modules' tests, which trace the same shapes under
+    other launch geometries."""
+    yield
+    jax.clear_caches()
+
+
 def _both(**kw):
     return JCommConfig(**kw), CommConfig(**kw)
 

@@ -119,6 +119,16 @@ CASES = {
 RESYNCED = {"bidir-sign-topk-int4-sequential"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """Leave the process as this module found it: its rounds trace the
+    JAX package's jitted Pallas kernels at shapes that other modules'
+    tests trace too, under other launch geometries, and jax's caches
+    would hand those tests the programs traced here."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(scope="module")
 def data():
     key = jax.random.PRNGKey(0)

@@ -55,6 +55,15 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """Leave the process as this module found it: the jitted rounds here
+    trace the JAX package's Pallas kernels, and jax's caches would hand
+    other modules' tests the programs traced here."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(scope="module")
 def data():
     key = jax.random.PRNGKey(0)
@@ -189,11 +198,6 @@ OUTSIDE_SLICE = {
     "done": dict(optimizer="done"),
     "fedadam": dict(optimizer="fedadam"),
     "fedyogi": dict(optimizer="fedyogi"),
-    "dispatch-chunk": dict(sched=SchedConfig(dispatch_chunk=4)),
-    "robust-aggregator": dict(robust=RobustConfig(aggregator="trimmed_mean",
-                                                  trim_fraction=0.25)),
-    "attack": dict(robust=RobustConfig(attack="sign_flip",
-                                       attack_fraction=0.25)),
     "probes": dict(obs=ObsConfig(probes=True)),
     "microbatches": dict(grad_microbatches=2),
     "bf16-state": dict(comm=CommConfig(state_dtype="bfloat16")),
@@ -212,6 +216,9 @@ def test_settings_outside_the_slice_raise(name):
 def test_unknown_settings_raise_value_error():
     for kw in (dict(optimizer="adam"), dict(strategy="pipelined"),
                dict(hessian_every_unit="epoch"),
-               dict(comm=CommConfig(state_dtype="float16"))):
+               dict(comm=CommConfig(state_dtype="float16")),
+               dict(robust=RobustConfig(aggregator="krum")),
+               dict(robust=RobustConfig(attack="flood")),
+               dict(sched=SchedConfig(dispatch_chunk=-1))):
         with pytest.raises(ValueError):
             FedEngine(MLPTask(hidden=HIDDEN), FedConfig(**kw), device="cpu")

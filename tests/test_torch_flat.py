@@ -129,6 +129,14 @@ def test_port_imports_without_jax_or_repro():
         if parts[-1] == "__init__":
             parts = parts[:-1]
         mods.append(".".join(parts))
+    # the scheduler, the adversarial fleet and their helpers are scanned
+    for name in ("repro_torch.sched.scheduler", "repro_torch.sched.latency",
+                 "repro_torch.robust.aggregators",
+                 "repro_torch.robust.attacks", "repro_torch.obs.spans",
+                 "repro_torch.data.partition", "repro_torch.utils.tree",
+                 "repro_torch.kernels.ops", "repro_torch.kernels.stale_accum",
+                 "repro_torch.kernels.robust_agg"):
+        assert name in mods, name
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

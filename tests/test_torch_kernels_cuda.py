@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (the Sophia update, the six quantize
-round-trip entry points and the four sign / top-k threshold entry
-points) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (the Sophia update and its pytree form, the six
+quantize round-trip entry points, the four sign / top-k threshold entry
+points, the stale accumulate and the robust combine) against their plain
+PyTorch versions, on the card.
 
 Every test here needs an NVIDIA card and ``nvcc`` (the kernel is built
 from ``src/repro_torch/kernels/csrc`` at first use), so each is marked
@@ -18,9 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.comm import flat as tflat
+from repro_torch.kernels import ops
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref
+from repro_torch.kernels import robust_agg as trobust
 from repro_torch.kernels import sophia_update as tk
+from repro_torch.kernels import stale_accum as tstale
 from repro_torch.kernels.ref import sophia_update_ref
 
 HP = dict(beta1=0.9, beta2=0.95, rho=0.04, eps=1e-12, weight_decay=1e-4)
@@ -272,3 +277,137 @@ def test_biased_wrappers_raise_on_card_inputs_they_do_not_take(card):
         tq.sign_roundtrip_batched(x, v.double())
     with pytest.raises(ValueError, match="devices"):
         tq.sign_roundtrip_flat(x[0], v[0].cpu())
+
+
+AGG_STORES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+              "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+
+
+def _stack(card, K, shape, store, seed, special=True):
+    """A (K, R, C) arrival stack stored in ``store``: arrivals 1 and 2
+    tie, and with ``special`` NaN, +-inf and an all -inf coordinate."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((K,) + shape).astype(np.float32)
+    if K > 2:
+        x[2] = x[1]
+    if special:
+        flat = x.reshape(K, -1)
+        for val in (np.nan, np.inf, -np.inf):
+            flat[rs.integers(0, K, 40),
+                 rs.integers(0, flat.shape[1], 40)] = val
+        flat[:, 5] = -np.inf
+    w = torch.tensor(rs.uniform(0.25, 2.0, K), dtype=torch.float32,
+                     device=card)
+    sc = torch.tensor(rs.uniform(0.5, 1.5, K), dtype=torch.float32,
+                      device=card)
+    return torch.tensor(x, device=card).to(AGG_STORES[store]), w, sc
+
+
+def _same_fp32(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", list(AGG_STORES))
+@pytest.mark.parametrize("K", [1, 16, 33])
+@pytest.mark.parametrize("shape", [(7, 1000), (7, 999)],
+                         ids=["vec4", "scalar"])
+def test_stale_accum_kernel_bitwise_vs_plain(card, store, K, shape):
+    """Bitwise, with inv_norm 1, 1/sum(w) by value and as a device
+    tensor; fp32 stacks of a multiple of 4 coordinates take the 16-byte
+    path."""
+    x, w, _ = _stack(card, K, shape, store, seed=K)
+    inv = float(np.float32(1.0) / np.float32(w.sum().item()))
+    tstale.reset_launches()
+    for s in (1.0, inv, torch.tensor([inv], device=card)):
+        got = tstale.stale_accum_flat(x, w, s)
+        torch.cuda.synchronize()
+        _same_fp32(got, ref.stale_accum_ref(x, w, s))
+    assert tstale.LAUNCHES["stale_accum_flat"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", list(AGG_STORES))
+@pytest.mark.parametrize("K", [3, 16, 32, 65])
+def test_robust_agg_kernel_bitwise_vs_plain(card, store, K):
+    """Bitwise over trim 0, 1 and (K-1)//2 and both normalize settings,
+    with scales != 1, ties, NaN and +-inf (K=65 takes the any-K form)."""
+    x, w, sc = _stack(card, K, (5, 300), store, seed=100 + K)
+    trobust.reset_launches()
+    calls = 0
+    for trim in sorted({0, 1, (K - 1) // 2}):
+        for normalize in (True, False):
+            got = trobust.robust_agg_flat(x, w, sc, trim=trim,
+                                          normalize=normalize)
+            torch.cuda.synchronize()
+            calls += 1
+            _same_fp32(got, ref.robust_agg_ref(x, w, sc, trim=trim,
+                                               normalize=normalize))
+    assert trobust.LAUNCHES["robust_agg_flat"] == calls
+
+
+@pytest.mark.cuda
+def test_robust_wrappers_raise_on_card_inputs_they_do_not_take(card):
+    x, w, sc = _stack(card, 4, (3, 64), "fp32", seed=1)
+    with pytest.raises(ValueError, match="2\\*trim"):
+        trobust.robust_agg_flat(x, w, sc, trim=2)
+    with pytest.raises(ValueError, match="weights on cpu"):
+        trobust.robust_agg_flat(x, w.cpu(), sc, trim=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tstale.stale_accum_flat(x.transpose(1, 2), w, 1.0)
+    with pytest.raises(ValueError, match="inv_norm on cpu"):
+        tstale.stale_accum_flat(x, w, torch.ones(1))
+
+
+@pytest.mark.cuda
+def test_sophia_fused_step_bitwise_vs_plain(card):
+    """The pytree route: pack, the Sophia kernel, unpack, against the
+    plain update of the same packed buffers."""
+    rs = np.random.default_rng(5)
+    shapes = {"w1": (784, 16), "b1": (16,), "w2": (16, 10), "b2": (10,)}
+
+    def tree(scale, positive=False):
+        t = {k: torch.tensor(scale * rs.standard_normal(s),
+                             dtype=torch.float32, device=card)
+             for k, s in shapes.items()}
+        return {k: v.abs() for k, v in t.items()} if positive else t
+    trees = [tree(1.0), tree(0.1), tree(0.01, True), tree(0.5),
+             tree(0.02, True)]
+    ops.reset_launches()
+    got = ops.sophia_fused_step(*trees, 1, lr=LR, **HP)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sophia_fused_step"] == 1
+    spec = tflat.flat_spec(trees[0], cols=ops.BLOCK_C)
+    want = sophia_update_ref(*(tflat.pack(t, spec) for t in trees), 1,
+                             lr=LR, **HP)
+    for g, w in zip(got, want):
+        for k, v in tflat.unpack(w, spec).items():
+            _same_fp32(g[k], v)
+
+
+@pytest.mark.cuda
+def test_pytree_sophia_step_launches_fused_kernel(card):
+    """`sophia_step` on CUDA trees takes the kernel route, one launch per
+    step, and equals `sophia_fused_step` on the same trees bitwise."""
+    from repro_torch.core import sophia as tsophia
+    rs = np.random.default_rng(6)
+    shapes = {"w1": (784, 16), "b1": (16,), "w2": (16, 10), "b2": (10,)}
+
+    def tree(scale, positive=False):
+        t = {k: torch.tensor(scale * rs.standard_normal(s),
+                             dtype=torch.float32, device=card)
+             for k, s in shapes.items()}
+        return {k: v.abs() for k, v in t.items()} if positive else t
+    params, g, hh, m, h = (tree(1.0), tree(0.1), tree(0.01, True),
+                           tree(0.5), tree(0.02, True))
+    ops.reset_launches()
+    got, state = tsophia.sophia_step(params, g, tsophia.SophiaState(m, h),
+                                     hh, True, lr=LR, **HP)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sophia_fused_step"] == 1
+    want = ops.sophia_fused_step(params, m, h, g, hh, True, lr=LR, **HP)
+    for gt, wt in zip((got, state.m, state.h), want):
+        for k in shapes:
+            _same_fp32(gt[k], wt[k])

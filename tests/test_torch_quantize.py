@@ -14,6 +14,7 @@
   residual; the clip at +-qmax; CPU calls launch nothing; bad inputs
   raise.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,16 @@ DTYPES = {"fp32": (torch.float32, jnp.float32),
           "e5m2": (torch.float8_e5m2, jnp.float8_e5m2)}
 #: one-ulp band of each narrow storage format (test_kernel_conformance)
 ULP = {"bf16": 2 ** -8, "e4m3": 2 ** -3, "e5m2": 2 ** -2}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """Leave the process as this module found it: the JAX package's
+    jitted Pallas kernels traced here would otherwise stay in jax's
+    caches for other modules' tests, which trace the same shapes under
+    other launch geometries."""
+    yield
+    jax.clear_caches()
 
 
 def _inputs(seed=0, shared=True):

@@ -41,6 +41,16 @@ DTYPES = {  # name -> (torch dtype, jnp dtype, band)
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """Leave the process as this module found it: the JAX package's
+    jitted Pallas kernels traced here would otherwise stay in jax's
+    caches for other modules' tests, which trace the same shapes under
+    other launch geometries."""
+    yield
+    jax.clear_caches()
+
+
 def _inputs(shape, seed=0):
     """theta, m, h, g, h_hat as fp32 numpy (h and h_hat non-negative, a
     few h exactly 0 so the eps floor and the clip both bite)."""
@@ -136,9 +146,8 @@ def test_wrapper_rejects_bad_inputs():
 def test_registry_marks_sophia_update_ported():
     from repro.kernels import KERNELS as JKERNELS
     assert tuple(KERNELS) == JKERNELS
-    assert [k for k, v in KERNELS.items() if v] == [
-        "quant_roundtrip", "broadcast_roundtrip", "uplink_roundtrip",
-        "sign_roundtrip", "topk_threshold", "sophia_update"]
+    # every family of the JAX package's registry has its port
+    assert all(KERNELS.values())
 
 
 def test_resolve_device():
@@ -150,3 +159,92 @@ def test_resolve_device():
             resolve_device("cuda")
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device(None)
+
+
+# ------------------------------------------------- the pytree Sophia step
+def _mlp_trees(seed):
+    """The MLP-16 params of the JAX package, and grads / h_hat / m / h
+    trees of its shapes, as (JAX trees, port trees)."""
+    from repro.models.small import MLPTask as JMLPTask
+    from repro_torch import convert
+    params = jax.tree.map(np.asarray, JMLPTask(hidden=16).init(
+        jax.random.PRNGKey(seed)))
+    rs = np.random.default_rng(seed)
+
+    def like(scale, positive=False):
+        t = {k: (scale * rs.standard_normal(v.shape)).astype(np.float32)
+             for k, v in params.items()}
+        return {k: np.abs(v) for k, v in t.items()} if positive else t
+    trees = [params, like(0.5), like(0.02, True), like(0.1),
+             like(0.01, True)]           # params, grads, h_hat, m, h
+    return ([jax.tree.map(jnp.asarray, t) for t in trees],
+            [convert.params_from_numpy(t, "cpu") for t in trees])
+
+
+@pytest.mark.parametrize("do_h", [False, True])
+def test_pytree_sophia_step_matches_jax(do_h):
+    """Two steps of the pytree Sophia step on the MLP pytree, both
+    routes.  `sophia_step` on CPU trees is the per-leaf route: it runs
+    the JAX pytree form's ops in its order, bitwise its eager run.  The
+    kernel route that `sophia_step` takes for CUDA trees
+    (`kernels.ops.sophia_fused_step`: pack, the Sophia update, unpack),
+    called directly here, against the JAX package's, the Pallas kernel
+    in interpret mode: rtol=atol=1e-6 (XLA's FMA contraction)."""
+    from repro.core import sophia as jsophia
+    from repro_torch.core import sophia as tsophia
+    from repro_torch.kernels import ops
+    (jp, jg, jhh, jm, jh), (tp, tg, thh, tm, th) = _mlp_trees(do_h + 1)
+    kw = dict(lr=LR, **HP)
+
+    def fused(params, grads, state, h_hat, do_h, **kw):
+        params, m, h = ops.sophia_fused_step(params, state.m, state.h,
+                                             grads, h_hat, do_h, **kw)
+        return params, tsophia.SophiaState(m=m, h=h)
+
+    for use_pallas in (False, True):
+        step = fused if use_pallas else tsophia.sophia_step
+        jstate = jsophia.SophiaState(m=jm, h=jh)
+        tstate = tsophia.SophiaState(m=tm, h=th)
+        jparams, tparams = jp, tp
+        ops.reset_launches()
+        for _ in range(2):
+            jparams, jstate = jsophia.sophia_step(
+                jparams, jg, jstate, jhh, do_h, use_pallas=use_pallas, **kw)
+            tparams, tstate = step(tparams, tg, tstate, thh, do_h, **kw)
+        assert ops.LAUNCHES["sophia_fused_step"] == 0     # CPU: plain
+        for jt, tt in ((jparams, tparams), (jstate.m, tstate.m),
+                       (jstate.h, tstate.h)):
+            assert sorted(tt) == sorted(jt)
+            for k in jt:
+                assert tt[k].shape == jt[k].shape
+                if use_pallas:
+                    np.testing.assert_allclose(tt[k].numpy(),
+                                               np.asarray(jt[k]),
+                                               rtol=1e-6, atol=1e-6)
+                else:
+                    np.testing.assert_array_equal(tt[k].numpy(),
+                                                  np.asarray(jt[k]))
+
+
+def test_pytree_helpers():
+    from repro.utils import tree as jtree
+    from repro_torch.core import sophia as tsophia
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    (jp, *_), (tp, *_) = _mlp_trees(3)
+    nested = {"b": tp, "a": (tp["w1"], None, [tp["b2"]])}
+    jnested = {"b": jp, "a": (jp["w1"], None, [jp["b2"]])}
+    got = [x.numpy() for x in tree_leaves(nested)]
+    want = jax.tree.leaves(jnested)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    doubled = tree_map(lambda x, y: x + y, nested, nested)
+    assert doubled["a"][1] is None
+    assert torch.equal(doubled["a"][2][0], 2 * tp["b2"])
+    state = tsophia.init_state(tp)
+    assert sorted(state.m) == sorted(tp)
+    assert all(not v.any() for v in tree_leaves(state))
+    assert jtree.tree_count_params(jp) == sum(
+        v.numel() for v in tree_leaves(tp))
+    with pytest.raises(ValueError, match="keys"):
+        tree_map(torch.add, tp, {"w1": tp["w1"]})
