@@ -29,6 +29,7 @@ record; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -131,12 +132,31 @@ def stale_ops(K: int) -> int:
     return 2 * K + 1
 
 
-def robust_ops(K: int, trim: int) -> int:
-    """fp32 operations per output coordinate of the robust combine: the
-    scale multiply per arrival, a select and a compare per arrival in
-    each of the 2*trim passes, the survivor-weight select, the multiply
-    and the two adds of the sums per arrival, the divide."""
-    return K + 2 * trim * K * 2 + 4 * K + 1
+def bitonic_pairs(n: int) -> int:
+    """Compare-exchanges of the bitonic sorting network over n = 2^p."""
+    p = n.bit_length() - 1
+    return n // 2 * p * (p + 1) // 2
+
+
+def robust_ops(K: int, trim: int, sort_share: float) -> float:
+    """fp32 operations per output coordinate of the robust combine, on
+    average over coordinates of which ``sort_share`` take its sort form:
+    the scale multiply per arrival, the survivor-weight select, the
+    multiply and the two adds of the sums per arrival, the divide; with
+    trim > 0 also the magnitude test per arrival (abs, compare) and then
+    either the sort form's selection (a min and a max per
+    compare-exchange of the bucket's network, the four compares against
+    its bounds per arrival) or the pass form's (a select and a compare
+    per arrival in each of the 2*trim passes).  The register buckets
+    only (K <= 64)."""
+    ops = K + 4 * K + 1
+    if trim == 0:
+        return ops
+    bucket = 16 if K <= 16 else 32 if K <= 32 else 64
+    sort_ops = 2 * bitonic_pairs(bucket) + 4 * K
+    pass_ops = 2 * trim * K * 2
+    return (ops + 2 * K + sort_share * sort_ops
+            + (1.0 - sort_share) * pass_ops)
 
 
 TIMED_LAUNCHES = 200
@@ -268,47 +288,108 @@ def sophia_inputs(shape, device, seed, dtypes=(torch.float32,) * 3,
     return [x.to(dt) for x, dt in zip(xs[:3], dtypes)] + xs[3:]
 
 
+def at_offset(x, offset: int):
+    """A contiguous view of ``x``'s values that starts ``offset``
+    elements into its storage (offset 1: not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def check_kernels(device):
     """Each kernel against its plain version on the card, bitwise
     (compared as raw bytes, NaN included).  Returns the largest
-    |kernel - plain| over finite coordinates, per kernel."""
+    |kernel - plain| over finite coordinates, per kernel.  The Sophia
+    cases cover both forms of the kernel: the fp32 form (fp32, aligned;
+    n % 4 != 0 and in place included) and the runtime-dtype form (any
+    narrow operand, or inputs at storage offset 1), then every dtype
+    combination of the five operands but all-fp32."""
     bf16 = (torch.bfloat16,) * 3
     fp8 = (torch.float32, torch.float8_e4m3fn, torch.float8_e5m2)
     N, R, C = (CLIENTS,) + MLP_PACKED
-    cases = [  # (label, entry, shape, dtypes, do_h, special, in place)
-        ("batched fp32 do_h=0", "batched", (N, R, C), None, 0, False, False),
-        ("batched fp32 do_h=1", "batched", (N, R, C), None, 1, False, False),
-        ("batched fp32 in place", "batched", (N, R, C), None, 1, False, True),
+    cases = [  # (label, entry, shape, dtypes, do_h, special, in place,
+               #  storage offset)
+        ("batched fp32 do_h=0", "batched", (N, R, C), None, 0, False, False,
+         0),
+        ("batched fp32 do_h=1", "batched", (N, R, C), None, 1, False, False,
+         0),
+        ("batched fp32 in place", "batched", (N, R, C), None, 1, False, True,
+         0),
         ("batched bf16 theta/m/h", "batched", (N, R, C), bf16, 1, False,
-         False),
-        ("batched bf16 do_h=0", "batched", (N, R, C), bf16, 0, False, False),
+         False, 0),
+        ("batched bf16 do_h=0", "batched", (N, R, C), bf16, 0, False, False,
+         0),
         ("batched e4m3 m + e5m2 h", "batched", (N, R, C), fp8, 1, False,
-         False),
-        ("batched NaN/inf", "batched", (N, R, C), None, 1, True, False),
-        ("batched fp8 NaN/inf", "batched", (N, R, C), fp8, 1, True, False),
-        ("flat fp32", "flat", (R, C), None, 1, False, False),
-        ("flat fp32 in place", "flat", (R, C), None, 0, False, True),
-        ("batched ragged", "batched", (3, 7, 1000), None, 1, False, False),
+         False, 0),
+        ("batched NaN/inf", "batched", (N, R, C), None, 1, True, False, 0),
+        ("batched fp8 NaN/inf", "batched", (N, R, C), fp8, 1, True, False,
+         0),
+        ("flat fp32", "flat", (R, C), None, 1, False, False, 0),
+        ("flat fp32 in place", "flat", (R, C), None, 0, False, True, 0),
+        ("batched ragged", "batched", (3, 7, 1000), None, 1, False, False,
+         0),
         ("flat ragged e4m3 m + e5m2 h", "flat", (7, 1000), fp8, 1, False,
-         False),
+         False, 0),
+        ("flat fp32 offset 1", "flat", (R, C), None, 1, True, False, 1),
+        ("batched fp32 offset 1", "batched", (N, R, C), None, 1, False,
+         False, 1),
+        ("flat fp32 offset 1 in place", "flat", (R, C), None, 0, False,
+         True, 1),
+        ("flat fp32 n%4=1", "flat", (7, 999), None, 1, True, False, 0),
+        ("batched fp32 n%4=3", "batched", (3, 7, 999), None, 1, False, False,
+         0),
+        ("flat fp32 n%4=1 in place", "flat", (7, 999), None, 0, False, True,
+         0),
+        ("batched fp32 n%4=3 in place", "batched", (3, 7, 999), None, 1,
+         True, True, 0),
+        ("flat fp32 n=3", "flat", (1, 3), None, 1, False, False, 0),
     ]
     fns = {"batched": tk.sophia_update_batched, "flat": tk.sophia_update_flat}
     err = {"sophia_update_batched": 0.0, "sophia_update_flat": 0.0}
-    for i, (label, entry, shape, dts, do_h, special, inplace) in enumerate(
-            cases):
-        ins = sophia_inputs(shape, device, SEED + i,
-                            dts or (torch.float32,) * 3, special)
+
+    def held(label, entry, ins, do_h, inplace, want_f32x4):
         want = sophia_update_ref(*ins, do_h, lr=LR, **HP)
         key = f"sophia_update_{entry}"
         before = tk.LAUNCHES[key]
-        args = [x.clone() for x in ins[:3]] + ins[3:] if inplace else ins
+        args = ([at_offset(x, x.storage_offset()) for x in ins[:3]]
+                + ins[3:] if inplace else ins)
+        outs = args[:3] if inplace else [torch.empty_like(x)
+                                         for x in ins[:3]]
+        if tk.takes_f32x4(*outs, *args) != want_f32x4:
+            form = "fp32" if want_f32x4 else "runtime-dtype"
+            raise SystemExit(f"kernel check {label}: the wrapper would not "
+                             f"take the {form} form")
         got = fns[entry](*args, do_h, LR, inplace=inplace, **HP)
         sync()
         if tk.LAUNCHES[key] != before + 1:
             raise SystemExit(f"kernel check {label}: the kernel did not "
                              "launch")
         err[key] = max(err[key], same_bits(label, key, got, want))
-        print(f"  {label:30s} {tuple(shape)} bitwise equal")
+
+    for i, (label, entry, shape, dts, do_h, special, inplace,
+            offset) in enumerate(cases):
+        ins = sophia_inputs(shape, device, SEED + i,
+                            dts or (torch.float32,) * 3, special)
+        ins = [at_offset(x, offset) for x in ins]
+        f32x4 = dts is None and offset == 0
+        held(label, entry, ins, do_h, inplace, f32x4)
+        print(f"  {label:30s} {tuple(shape)} "
+              f"{'fp32' if f32x4 else 'runtime-dtype'} form, bitwise equal")
+    # every dtype of each of the five operands but all five fp32: the
+    # runtime-dtype form, at a ragged shape, NaN/inf and fp8 overflow in
+    base = [x.float() for x in sophia_inputs((7, 999), device, SEED + 50,
+                                             fp8, special=True)]
+    combos = [c for c in itertools.product(STORES, repeat=5)
+              if any(dt != torch.float32 for dt in c)]
+    for j, combo in enumerate(combos):
+        ins = [x.to(dt) for x, dt in zip(base, combo)]
+        held(f"sophia dtypes {combo}", ("flat", "batched")[j % 2],
+             ins if j % 2 == 0 else [x.unsqueeze(0) for x in ins], j % 3 % 2,
+             j % 5 == 0, False)
+    print(f"  every dtype combination but all-fp32 ({len(combos)}, flat and "
+          "batched in turn, 1 in 5 in place) runtime-dtype form, bitwise "
+          "equal")
     return err
 
 
@@ -544,12 +625,21 @@ def fp8_overflow_rule(device):
                           zip(vals.tolist(), got)))
 
 
-def agg_inputs(K, device, seed, store=torch.float32, special=False):
+#: what each kind of robust-combine check stack holds
+AGG_KINDS = {"special": "NaN/inf/ties", "finite": "finite, ties",
+             "mixed": "NaN/inf at every 3rd coordinate",
+             "edges": "+-FLT_MAX/+-0 ties"}
+
+
+def agg_inputs(K, device, seed, store=torch.float32, special=False,
+               mixed=False):
     """A ``(K, 116, 1024)`` arrival stack stored in ``store`` with fp32
     weights in [0.25, 2) and scales in [0.5, 1.5): arrivals 1 and 2 tie
     everywhere, arrival 5 ties arrival 0 at every third coordinate;
     ``special`` puts NaN, +inf and -inf at random places and an all -inf
-    and an all-NaN coordinate."""
+    and an all-NaN coordinate; ``mixed`` also one NaN, +inf or -inf at
+    every third coordinate, so that every warp mixes the kernel's two
+    forms."""
     rs = np.random.default_rng(seed)
     x = rs.standard_normal((K,) + MLP_PACKED).astype(np.float32)
     if K > 2:
@@ -563,11 +653,41 @@ def agg_inputs(K, device, seed, store=torch.float32, special=False):
                                                       256)] = val
         flat[:, 11] = -np.inf
         flat[:, 12] = np.nan
+    if mixed:
+        flat = x.reshape(K, -1)
+        cols = np.arange(0, flat.shape[1], 3)
+        flat[rs.integers(0, K, cols.size), cols] = rs.choice(
+            np.array([np.nan, np.inf, -np.inf], np.float32), cols.size)
     w = torch.tensor(rs.uniform(0.25, 2.0, K), dtype=torch.float32,
                      device=device)
     sc = torch.tensor(rs.uniform(0.5, 1.5, K), dtype=torch.float32,
                       device=device)
     return torch.tensor(x, device=device).to(store), w, sc
+
+
+def agg_edge_inputs(K, device, seed):
+    """A fp32 ``(K, 116, 1024)`` stack of heavy ties drawn from {-FLT_MAX,
+    -1, -0, +0, 1, FLT_MAX} (only +-1 and +-0 at even coordinates, which
+    the kernel's sort form takes; the odd ones, +-FLT_MAX among them, its
+    pass form), every 16th coordinate all equal; fp32 weights in [0.25,
+    2) and unit scales, so that +-FLT_MAX stays finite."""
+    rs = np.random.default_rng(seed)
+    big = np.finfo(np.float32).max
+    alphabet = np.array([-big, -1.0, -0.0, 0.0, 1.0, big], np.float32)
+    flat = alphabet[rs.integers(0, 6, (K, MLP_PACKED[0] * MLP_PACKED[1]))]
+    flat[:, ::2] = alphabet[rs.integers(1, 5, flat[:, ::2].shape)]
+    flat[:, ::16] = flat[0, ::16]
+    w = torch.tensor(rs.uniform(0.25, 2.0, K), dtype=torch.float32,
+                     device=device)
+    x = torch.tensor(flat.reshape((K,) + MLP_PACKED), device=device)
+    return x, w, torch.ones(K, device=device)
+
+
+def sort_form_share(x, sc):
+    """The share of coordinates whose K scaled values all have magnitude
+    below FLT_MAX: those the robust combine's sort form takes."""
+    xs = sc.reshape((-1,) + (1,) * (x.ndim - 1)) * x.float()
+    return (xs.abs() < torch.finfo(torch.float32).max).all(0).float().mean()
 
 
 def inv_sum(w) -> float:
@@ -612,22 +732,38 @@ def check_agg_kernels(device):
                          lambda: kref.stale_accum_ref(x, w, inv))
                 print(f"  stale_accum_flat K={K:2d} {str(store)[6:]:14s}"
                       f"{' NaN/inf' if special else ''} bitwise equal")
-    cases = [(K, trim, torch.float32) for K in (15, 16, 32, 65)
+    cases = [(K, trim, torch.float32, "special") for K in (15, 16, 32, 65)
              for trim in sorted({0, 1, 8, (K - 1) // 2}) if 2 * trim < K]
-    cases += [(16, 1, store) for store in STORES[1:]]
-    cases += [(16, 4, torch.float32)]     # robust-comm-int8-randomwire's
-    for i, (K, trim, store) in enumerate(cases):
-        x, w, sc = agg_inputs(K, device, SEED + 300 + i, store,
-                              special=True)
+    cases += [(16, 1, store, "special") for store in STORES[1:]]
+    cases += [(16, 4, torch.float32, "special")]  # the comm round's, S=16
+    # the sort form (every value finite) in each register bucket and the
+    # any-K form; +-FLT_MAX and +-0 ties; warps that mix both forms
+    cases += [(K, trim, torch.float32, "finite") for K in (5, 16, 17, 32, 33,
+                                                          64, 65, 100)
+              for trim in sorted({1, K // 4, (K - 1) // 2}) if 2 * trim < K]
+    cases += [(16, 4, torch.bfloat16, "finite"), (32, 8, torch.float8_e4m3fn,
+                                                  "finite")]
+    cases += [(K, trim, torch.float32, kind) for kind in ("edges", "mixed")
+              for K in (16, 32, 64, 65)
+              for trim in sorted({1, K // 4, (K - 1) // 2})]
+    for i, (K, trim, store, kind) in enumerate(cases):
+        if kind == "edges":
+            x, w, sc = agg_edge_inputs(K, device, SEED + 300 + i)
+        else:
+            x, w, sc = agg_inputs(K, device, SEED + 300 + i, store,
+                                  special=kind != "finite",
+                                  mixed=kind == "mixed")
         for normalize in (True, False):
-            held(f"robust K={K} trim={trim}", "robust_agg_flat",
+            held(f"robust K={K} trim={trim} {kind}", "robust_agg_flat",
                  lambda: trobust.robust_agg_flat(x, w, sc, trim=trim,
                                                  normalize=normalize),
                  lambda: kref.robust_agg_ref(x, w, sc, trim=trim,
                                              normalize=normalize))
-        print(f"  robust_agg_flat K={K:2d} trim={trim:2d} "
-              f"{str(store)[6:]:14s} NaN/inf/ties, both normalize, "
-              "bitwise equal")
+        form = ("any-K form" if K > 64 else
+                f"sort form at {float(sort_form_share(x, sc)):.4f}")
+        print(f"  robust_agg_flat K={K:3d} trim={trim:2d} "
+              f"{str(store)[6:]:14s} {AGG_KINDS[kind]}, {form} of "
+              "coordinates, both normalize, bitwise equal")
     return err
 
 
@@ -1499,6 +1635,30 @@ def time_pair(name, kern, plain, ins, outs_like, ops_per_coord,
                 bound_by=b_by, shape=shape)
 
 
+def sweep_sophia_grid(device):
+    """Device ms of the Sophia kernel's fp32 form at the main path's two
+    shapes for each cap on its grid (blocks per SM; "all": a thread per
+    float4 group, whatever n), the flat entry walking the 32 client
+    slices as in `time_kernels`.  Sets nothing: the wrapper's cap is
+    chosen from these numbers by hand."""
+    N, R, C = (CLIENTS,) + MLP_PACKED
+    ins = sophia_inputs((N, R, C), device, SEED + 99)
+    keep = tk.F32X4_BLOCKS_PER_SM
+    try:
+        for cap in (2, 4, 8, 16, 32, None):
+            tk.F32X4_BLOCKS_PER_SM = cap or 1 << 20
+            flat = time_ms(lambda i: tk.sophia_update_flat(
+                *(x[i % N] for x in ins), 1, LR, **HP))
+            batched = time_ms(lambda i: tk.sophia_update_batched(
+                *ins, 1, LR, **HP))
+            grids = [tk.f32x4_blocks(n, device) for n in (R * C, N * R * C)]
+            print(f"sophia fp32 form, blocks per SM {cap or 'all'} (grids "
+                  f"{grids[0]}, {grids[1]}): flat {flat} ms, batched "
+                  f"{batched} ms")
+    finally:
+        tk.F32X4_BLOCKS_PER_SM = keep
+
+
 def time_kernels(device):
     """Every kernel and its plain version at the main path's shapes,
     fp32.  A flat entry walks the 32 client slices of a stack in turn,
@@ -1506,6 +1666,7 @@ def time_kernels(device):
     sequential strategy does; the batched entries run on the whole stack
     (32 clients; 16 for the downlink of the bidir path, where half the
     clients take part)."""
+    sweep_sophia_grid(device)
     N, R, C = (CLIENTS,) + MLP_PACKED
     ins = sophia_inputs((N, R, C), device, SEED + 99)
     lr = torch.tensor(LR)
@@ -1604,8 +1765,9 @@ def time_slice4(device):
     K=32 trim 8 (the trimmed mean of the direct phase; the headline),
     K=32 trim 15 (the median), K=16 trim 4 (the comm round's trimmed
     mean at S=16) and K=16 trim 0 with clip scales (norm-clip), beside
-    ``torch.sort(wires, dim=0)``, the sort the kernel avoids (no library
-    call computes the combine); the pytree step on the MLP-128 trees."""
+    ``torch.sort(wires, dim=0)``, the library's sort along K (the kernel
+    sorts a register copy per coordinate instead; no library call
+    computes the combine); the pytree step on the MLP-128 trees."""
     out = {}
     R, C = MLP_PACKED
     agg_out = [torch.empty((R, C), device=device)]
@@ -1631,18 +1793,22 @@ def time_slice4(device):
         if not clip:
             sc = torch.ones_like(sc)
         n = len(xs)
+        share = float(sum(sort_form_share(x, sc) for x in xs)) / n
+        print(f"robust_agg_flat (K={K}, trim={trim}): sort form at {share} "
+              f"of coordinates; {robust_ops(K, trim, share)} operations a "
+              f"coordinate ({robust_ops(K, trim, 0.0)} in the pass form)")
         t = time_pair(f"robust_agg_flat (K={K}, trim={trim}"
                       f"{', clip scales' if clip else ''})",
                       lambda i: trobust.robust_agg_flat(xs[i % n], w, sc,
                                                         trim=trim),
                       lambda i: kref.robust_agg_ref(xs[i % n], w, sc,
                                                     trim=trim),
-                      [xs[0], w, sc], agg_out, robust_ops(K, trim),
+                      [xs[0], w, sc], agg_out, robust_ops(K, trim, share),
                       plain_chunk=2)
         sort_ms = time_ms(lambda i: torch.sort(xs[i % n], dim=0))
         t["library_ms"] = None
         print(f"robust_agg_flat (K={K}, trim={trim}): torch.sort(wires, "
-              f"dim=0), the sort it avoids, {sort_ms} ms")
+              f"dim=0), the library's sort along K, {sort_ms} ms")
         out.setdefault("robust_agg_flat", t)
         del xs
     # 24 sets of the five MLP-128 trees (57 MB) walked in turn

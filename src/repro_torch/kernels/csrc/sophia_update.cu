@@ -11,23 +11,41 @@
 // What bounds it on this card: bytes.  Five loads and three stores per
 // coordinate against about fifteen flops: at fp32 that is 32 bytes for
 // 15 flops, far below the H100's ~20 flops/byte ridge, so the least time
-// is (bytes moved) / (3.35 TB/s).  The design moves each byte once: one
-// pass over the N*R*C contiguous elements (the flat entry is N=1, the
-// client-batched entry the whole (N, R, C) stack), nothing staged in
-// shared memory, no second pass.  A grid-stride loop over blocks sized
-// from the SM count keeps every SM streaming; neighbouring threads touch
-// neighbouring addresses so each warp's loads coalesce.  Vectorised
-// 16-byte loads and TMA are later work.
+// is (bytes moved) / (3.35 TB/s).  One pass over the N*R*C contiguous
+// elements (the flat entry is N=1, the client-batched entry the whole
+// (N, R, C) stack), nothing staged in shared memory, no second pass.
 //
-// Bits: built with -fmad=false and IEEE division, so the kernel is
+// Two forms of the one pass, with the same arithmetic per coordinate
+// (`sophia_coord`):
+//
+// - The fp32 form, taken when all five operands are fp32 and all eight
+//   pointers are 16-byte aligned (every launch of the round engine,
+//   whose resident state is fp32).  A thread owns kUnroll float4 groups
+//   per trip, spaced one grid apart: it issues all 5*kUnroll 16-byte
+//   loads before the first use, then computes and stores.  Loads and
+//   stores carry the evict-first hint (ld.global.cs / st.global.cs): each
+//   byte is touched once.  The grid is a thread per float4 group up to a
+//   cap of blocks per SM (the wrapper's `F32X4_BLOCKS_PER_SM`, chosen from
+//   `chip_smoke.py`'s sweep): at the main path's shapes every group has
+//   its own thread; past the cap each thread walks several.  The n % 4
+//   tail is scalar.  What held the old one-element-per-thread kernel
+//   back was per-element work, not bytes: a 4-byte access and a dtype
+//   switch per operand, and the address arithmetic, for every coordinate.
+// - The runtime-dtype form, for any other dtype combination or a pointer
+//   that is not 16-byte aligned (a contiguous view at an odd storage
+//   offset): one coordinate per thread, each of th, m, h, g, h_hat with
+//   its own dtype code, loads and stores through dtype_io.cuh.
+//
+// In place: theta_out may be theta (and m_out m, h_out h), so the aliased
+// pairs carry no __restrict__.  Each element is read and then written by
+// the same thread, and a thread's loads precede its stores.
+//
+// Bits: built with -fmad=false and IEEE division, so both forms are
 // bitwise the op-by-op PyTorch version (kernels/ref.py) on the card.
 // (1-b1), (1-b2) arrive precomputed in double and rounded to fp32 once,
 // as the Python-double expressions of the JAX body are.  max() and the
 // clip are written as compares that let NaN through, as jnp.maximum /
 // jnp.clip / torch.clamp do (fmaxf would swallow it).
-//
-// Each of th, m, h, g, h_hat carries a runtime dtype code; loads and
-// stores go through dtype_io.cuh.
 #include "dtype_io.cuh"
 
 namespace {
@@ -35,42 +53,116 @@ namespace {
 using namespace repro_torch;
 
 constexpr int kThreads = 256;
+// float4 groups per thread per trip of the fp32 form's grid-stride loop
+constexpr int kUnroll = 2;
 
-// Outputs may alias their inputs (theta_out == theta for an in-place
-// update): each element is read and then written by the same thread.
+struct Hyper {
+  float do_h, lr, beta1, one_minus_beta1, beta2, one_minus_beta2, rho, eps,
+      weight_decay;
+  // lr*wd and 1-do_h, rounded to fp32 on the card as the plain version
+  // rounds them
+  __device__ __forceinline__ float lr_wd() const { return lr * weight_decay; }
+  __device__ __forceinline__ float keep_h() const { return 1.0f - do_h; }
+};
+
+__device__ __forceinline__ void sophia_coord(const Hyper& p, float th,
+                                             float m, float h0, float g,
+                                             float h_hat, float& th_out,
+                                             float& m_out, float& h_out) {
+  const float mi = p.beta1 * m + p.one_minus_beta1 * g;
+  const float h_new = p.beta2 * h0 + p.one_minus_beta2 * h_hat;
+  const float hi = p.do_h * h_new + p.keep_h() * h0;
+  th = th - p.lr_wd() * th;
+  const float denom = hi < p.eps ? p.eps : hi;
+  float step = mi / denom;
+  step = step < -p.rho ? -p.rho : step;
+  step = step > p.rho ? p.rho : step;
+  th_out = th - p.lr * step;
+  m_out = mi;
+  h_out = hi;
+}
+
+__device__ __forceinline__ void sophia_quad(const Hyper& p, float4 th,
+                                            float4 m, float4 h, float4 g,
+                                            float4 hh, float4& th_out,
+                                            float4& m_out, float4& h_out) {
+  sophia_coord(p, th.x, m.x, h.x, g.x, hh.x, th_out.x, m_out.x, h_out.x);
+  sophia_coord(p, th.y, m.y, h.y, g.y, hh.y, th_out.y, m_out.y, h_out.y);
+  sophia_coord(p, th.z, m.z, h.z, g.z, hh.z, th_out.z, m_out.z, h_out.z);
+  sophia_coord(p, th.w, m.w, h.w, g.w, hh.w, th_out.w, m_out.w, h_out.w);
+}
+
+__global__ void __launch_bounds__(kThreads) sophia_update_f32x4_kernel(
+    float* theta_out, float* m_out, float* h_out, const float* theta,
+    const float* m, const float* h, const float* __restrict__ g,
+    const float* __restrict__ h_hat, int64_t n, Hyper p) {
+  const int64_t n4 = n >> 2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const float4* th4 = reinterpret_cast<const float4*>(theta);
+  const float4* m4 = reinterpret_cast<const float4*>(m);
+  const float4* h4 = reinterpret_cast<const float4*>(h);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  const float4* hh4 = reinterpret_cast<const float4*>(h_hat);
+  for (int64_t base = first; base < n4; base += kUnroll * stride) {
+    float4 th[kUnroll], mm[kUnroll], hv[kUnroll], gv[kUnroll], hh[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t j = base + u * stride;
+      if (j < n4) {
+        th[u] = __ldcs(th4 + j);
+        mm[u] = __ldcs(m4 + j);
+        hv[u] = __ldcs(h4 + j);
+        gv[u] = __ldcs(g4 + j);
+        hh[u] = __ldcs(hh4 + j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t j = base + u * stride;
+      if (j < n4) {
+        float4 t, mo, ho;
+        sophia_quad(p, th[u], mm[u], hv[u], gv[u], hh[u], t, mo, ho);
+        __stcs(reinterpret_cast<float4*>(theta_out) + j, t);
+        __stcs(reinterpret_cast<float4*>(m_out) + j, mo);
+        __stcs(reinterpret_cast<float4*>(h_out) + j, ho);
+      }
+    }
+  }
+  // the n % 4 coordinates past the last group
+  if (first < n - 4 * n4) {
+    const int64_t i = 4 * n4 + first;
+    sophia_coord(p, theta[i], m[i], h[i], g[i], h_hat[i], theta_out[i],
+                 m_out[i], h_out[i]);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) sophia_update_kernel(
     void* theta_out, void* m_out, void* h_out, const void* theta,
     const void* m, const void* h, const void* g, const void* h_hat,
-    int c_theta, int c_m, int c_h, int c_g, int c_hh, int64_t n,
-    float do_h, float lr, float beta1, float one_minus_beta1, float beta2,
-    float one_minus_beta2, float rho, float eps, float weight_decay) {
-  const float lr_wd = lr * weight_decay;
-  const float keep_h = 1.0f - do_h;
+    int c_theta, int c_m, int c_h, int c_g, int c_hh, int64_t n, Hyper p) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride) {
-    const float gi = to_f32(g, i, c_g);
-    const float h0 = to_f32(h, i, c_h);
-    const float mi = beta1 * to_f32(m, i, c_m) + one_minus_beta1 * gi;
-    const float h_new = beta2 * h0 + one_minus_beta2 * to_f32(h_hat, i, c_hh);
-    const float hi = do_h * h_new + keep_h * h0;
-    float th = to_f32(theta, i, c_theta);
-    th = th - lr_wd * th;
-    const float denom = hi < eps ? eps : hi;
-    float step = mi / denom;
-    step = step < -rho ? -rho : step;
-    step = step > rho ? rho : step;
-    from_f32(theta_out, i, c_theta, th - lr * step);
-    from_f32(m_out, i, c_m, mi);
-    from_f32(h_out, i, c_h, hi);
+    float th, mo, ho;
+    sophia_coord(p, to_f32(theta, i, c_theta), to_f32(m, i, c_m),
+                 to_f32(h, i, c_h), to_f32(g, i, c_g),
+                 to_f32(h_hat, i, c_hh), th, mo, ho);
+    from_f32(theta_out, i, c_theta, th);
+    from_f32(m_out, i, c_m, mo);
+    from_f32(h_out, i, c_h, ho);
   }
 }
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream); allocates nothing and
-// does not synchronise.  Returns cudaGetLastError() after the launch.
+// Both launches run on `stream` (PyTorch's current stream), allocate
+// nothing and do not synchronise; each returns cudaGetLastError() after
+// the launch.
+
+// The runtime-dtype form: any dtype code per operand, any alignment.
 extern "C" int sophia_update_launch(
     void* theta_out, void* m_out, void* h_out, const void* theta,
     const void* m, const void* h, const void* g, const void* h_hat,
@@ -82,8 +174,25 @@ extern "C" int sophia_update_launch(
   sophia_update_kernel<<<blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       theta_out, m_out, h_out, theta, m, h, g, h_hat, c_theta, c_m, c_h,
-      c_g, c_hh, n, do_h, lr, beta1, one_minus_beta1, beta2,
-      one_minus_beta2, rho, eps, weight_decay);
+      c_g, c_hh, n,
+      Hyper{do_h, lr, beta1, one_minus_beta1, beta2, one_minus_beta2, rho,
+            eps, weight_decay});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 form: every operand fp32, every pointer 16-byte aligned.
+extern "C" int sophia_update_f32x4_launch(
+    float* theta_out, float* m_out, float* h_out, const float* theta,
+    const float* m, const float* h, const float* g, const float* h_hat,
+    int64_t n, float do_h, float lr, float beta1, float one_minus_beta1,
+    float beta2, float one_minus_beta2, float rho, float eps,
+    float weight_decay, int blocks, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  sophia_update_f32x4_kernel<<<blocks, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      theta_out, m_out, h_out, theta, m, h, g, h_hat, n,
+      Hyper{do_h, lr, beta1, one_minus_beta1, beta2, one_minus_beta2, rho,
+            eps, weight_decay});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,9 @@
 ``kernels/sophia_update.py``).
 
 For CUDA tensors each entry point validates its inputs and launches the
-kernel on PyTorch's current stream, or raises.  For CPU tensors it runs
+kernel on PyTorch's current stream, or raises: its fp32 form when all
+five operands are fp32 and all eight pointers 16-byte aligned
+(`takes_f32x4`), else its runtime-dtype form.  For CPU tensors it runs
 the plain version `ref.sophia_update_ref`; that is the only case in
 which the plain version runs.  ``LAUNCHES`` counts kernel launches per
 entry point (CPU calls count nothing).
@@ -29,16 +31,41 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _kernel_fn():
+#: blocks per SM at most in the fp32 form's grid (fewer when every float4
+#: group of the launch has its own thread); chosen from the card's times in
+#: `chip_smoke.py: sweep_sophia_grid`
+F32X4_BLOCKS_PER_SM = 32
+
+
+def _lib():
     lib = build.load("sophia_update")
-    fn = lib.sophia_update_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.c_int64] + [ctypes.c_float] * 9
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    if lib.sophia_update_launch.argtypes is None:
+        lib.sophia_update_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64]
+            + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_void_p])
+        lib.sophia_update_launch.restype = ctypes.c_int
+        lib.sophia_update_f32x4_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int64] + [ctypes.c_float] * 9
+            + [ctypes.c_int, ctypes.c_void_p])
+        lib.sophia_update_f32x4_launch.restype = ctypes.c_int
         lib.sophia_update_threads.restype = ctypes.c_int
-    return fn, int(lib.sophia_update_threads())
+    return lib
+
+
+def f32x4_blocks(n: int, device: torch.device) -> int:
+    """The fp32 form's grid over ``n`` coordinates: a thread per float4
+    group, but at most `F32X4_BLOCKS_PER_SM` blocks per SM (then each
+    thread walks several groups)."""
+    threads = int(_lib().sophia_update_threads())
+    return max(1, min(-(-(n // 4) // threads),
+                      build.sm_count(device.index) * F32X4_BLOCKS_PER_SM))
+
+
+def takes_f32x4(*tensors) -> bool:
+    """Whether a launch on ``tensors`` (the outputs and the five inputs)
+    takes the kernel's fp32 form: every one fp32 and 16-byte aligned."""
+    return all(t.dtype == torch.float32 and t.data_ptr() % 16 == 0
+               for t in tensors)
 
 
 def _validate(name: str, ndim: int, tensors) -> str:
@@ -75,16 +102,23 @@ def _launch(name, theta, m, h, g, h_hat, do_h, lr, hp, inplace):
         outs: Tuple[torch.Tensor, ...] = (theta, m, h)
     else:
         outs = tuple(torch.empty_like(x) for x in (theta, m, h))
-    fn, threads = _kernel_fn()
+    lib = _lib()
+    ins = (theta, m, h, g, h_hat)
     n = theta.numel()
-    blocks = build.grid_blocks(-(-n // threads), theta.device)
+    scalars = (float(do_h), float(lr), hp["beta1"], 1.0 - hp["beta1"],
+               hp["beta2"], 1.0 - hp["beta2"], hp["rho"], hp["eps"],
+               hp["weight_decay"])
+    ptrs = [t.data_ptr() for t in outs + ins]
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in outs),
-             *(t.data_ptr() for t in (theta, m, h, g, h_hat)),
-             *(DTYPE_CODES[t.dtype] for t in (theta, m, h, g, h_hat)),
-             n, float(do_h), float(lr), hp["beta1"], 1.0 - hp["beta1"],
-             hp["beta2"], 1.0 - hp["beta2"], hp["rho"], hp["eps"],
-             hp["weight_decay"], blocks, stream)
+    if takes_f32x4(*outs, *ins):
+        err = lib.sophia_update_f32x4_launch(
+            *ptrs, n, *scalars, f32x4_blocks(n, theta.device), stream)
+    else:
+        threads = int(lib.sophia_update_threads())
+        blocks = build.grid_blocks(-(-n // threads), theta.device)
+        err = lib.sophia_update_launch(
+            *ptrs, *(DTYPE_CODES[t.dtype] for t in ins), n, *scalars,
+            blocks, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

@@ -15,6 +15,8 @@ Band: bitwise.  The kernel is built with ``-fmad=false`` and IEEE
 division, and the plain version runs the same fp32 ops one by one, so
 every stored bit agrees, narrow storage and overflow included.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -92,6 +94,69 @@ def test_flat_kernel_in_place_bitwise_vs_plain(card):
     assert tk.LAUNCHES["sophia_update_flat"] == 1
     assert all(a is b for a, b in zip(got, ins[:3]))
     _bitwise(got, want)
+
+
+def _at_offset(x, offset):
+    """A contiguous view of ``x``'s values ``offset`` elements into its
+    storage (offset 1: not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+SOPHIA_FORM_CASES = {  # name: (shape, storage offset, in place, fp32 form)
+    "aligned": ((7, 1000), 0, False, True),
+    "n%4=1": ((7, 999), 0, False, True),
+    "n%4=3 in place": ((3, 7, 999), 0, True, True),
+    "n=3": ((1, 3), 0, False, True),
+    "offset 1": ((7, 1000), 1, False, False),
+    "offset 1 in place": ((3, 7, 1000), 1, True, False),
+    "offset 4": ((7, 999), 4, True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SOPHIA_FORM_CASES))
+def test_sophia_kernel_forms_bitwise_vs_plain(card, name):
+    """fp32 operands: the fp32 form when all eight pointers are 16-byte
+    aligned (ragged n and in place included), the runtime-dtype form at
+    storage offset 1; both bitwise the plain version."""
+    shape, offset, inplace, f32x4 = SOPHIA_FORM_CASES[name]
+    ins = [_at_offset(x, offset) for x in _inputs(shape, card, seed=7)]
+    want = sophia_update_ref(*ins, 1, lr=LR, **HP)
+    outs = ins[:3] if inplace else [torch.empty_like(x) for x in ins[:3]]
+    assert tk.takes_f32x4(*outs, *ins) == f32x4
+    entry = (tk.sophia_update_batched if len(shape) == 3
+             else tk.sophia_update_flat)
+    tk.reset_launches()
+    got = entry(*ins, 1, LR, inplace=inplace, **HP)
+    torch.cuda.synchronize()
+    assert sum(tk.LAUNCHES.values()) == 1
+    _bitwise(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["flat", "batched"])
+def test_sophia_runtime_form_every_dtype_combination(card, entry):
+    """Every storage dtype of each of the five operands but all-fp32 (the
+    runtime-dtype form), with NaN, inf and fp8 overflow, bitwise."""
+    base = _inputs((7, 999), card, seed=8, overflow=True)
+    base[2][0, :5] = float("nan")
+    base[3][1, :5] = float("inf")
+    dtypes = list(AGG_STORES.values())
+    combos = [c for c in itertools.product(dtypes, repeat=5)
+              if any(dt != torch.float32 for dt in c)]
+    fn = tk.sophia_update_flat if entry == "flat" else tk.sophia_update_batched
+    tk.reset_launches()
+    for combo in combos:
+        ins = [x.to(dt) for x, dt in zip(base, combo)]
+        if entry == "batched":
+            ins = [x[None] for x in ins]
+        assert not tk.takes_f32x4(*ins)
+        got = fn(*ins, 0, LR, **HP)
+        _bitwise(got, sophia_update_ref(*ins, 0, lr=LR, **HP))
+    assert tk.LAUNCHES[f"sophia_update_{entry}"] == len(combos) == 1023
 
 
 @pytest.mark.cuda
@@ -338,6 +403,57 @@ def test_robust_agg_kernel_bitwise_vs_plain(card, store, K):
     trobust.reset_launches()
     calls = 0
     for trim in sorted({0, 1, (K - 1) // 2}):
+        for normalize in (True, False):
+            got = trobust.robust_agg_flat(x, w, sc, trim=trim,
+                                          normalize=normalize)
+            torch.cuda.synchronize()
+            calls += 1
+            _same_fp32(got, ref.robust_agg_ref(x, w, sc, trim=trim,
+                                               normalize=normalize))
+    assert trobust.LAUNCHES["robust_agg_flat"] == calls
+
+
+def _edge_stack(card, K, shape, seed):
+    """A fp32 stack of heavy ties from {-FLT_MAX, -1, -0, +0, 1, FLT_MAX}:
+    +-1 and +-0 only at even coordinates (the sort form), any of them at
+    odd ones (+-FLT_MAX takes the pass form); unit scales."""
+    rs = np.random.default_rng(seed)
+    big = np.finfo(np.float32).max
+    alphabet = np.array([-big, -1.0, -0.0, 0.0, 1.0, big], np.float32)
+    flat = alphabet[rs.integers(0, 6, (K, int(np.prod(shape))))]
+    flat[:, ::2] = alphabet[rs.integers(1, 5, flat[:, ::2].shape)]
+    flat[:, ::16] = flat[0, ::16]
+    w = torch.tensor(rs.uniform(0.25, 2.0, K), dtype=torch.float32,
+                     device=card)
+    return (torch.tensor(flat.reshape((K,) + shape), device=card), w,
+            torch.ones(K, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["finite", "edges", "mixed"])
+@pytest.mark.parametrize("K", [5, 16, 17, 32, 33, 64, 65])
+def test_robust_agg_sort_form_bitwise_vs_plain(card, K, kind):
+    """The sort form in each register bucket (16, 32, 64) and the any-K
+    form: all-finite stacks with ties, +-FLT_MAX and +-0 ties, and stacks
+    with a NaN or an inf at every third coordinate (every warp runs both
+    forms); every trim, both normalize settings, bitwise."""
+    if kind == "edges":
+        x, w, sc = _edge_stack(card, K, (5, 300), seed=200 + K)
+    else:
+        x, w, sc = _stack(card, K, (5, 300), "fp32", seed=300 + K,
+                          special=False)
+        if kind == "mixed":
+            flat = x.view(K, -1)
+            cols = torch.arange(0, flat.shape[1], 3, device=card)
+            gen = torch.Generator(card).manual_seed(K)
+            rows = torch.randint(0, K, cols.shape, device=card,
+                                 generator=gen)
+            vals = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                                device=card)
+            flat[rows, cols] = vals[(cols // 3) % 3]
+    trobust.reset_launches()
+    calls = 0
+    for trim in range(0, (K - 1) // 2 + 1):
         for normalize in (True, False):
             got = trobust.robust_agg_flat(x, w, sc, trim=trim,
                                           normalize=normalize)

@@ -30,11 +30,14 @@
 """
 import dataclasses
 
+import hypothesis
+import hypothesis.strategies as hst
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis.extra import numpy as hnp
 
 from repro.configs.base import CommConfig as JCommConfig
 from repro.configs.base import FedConfig as JFedConfig
@@ -226,6 +229,150 @@ def test_survivor_mask_rules():
     # the second max pass meets only -inf survivors: it hits the removed
     # 5.0 again, and the min passes then take two of the -infs
     np.testing.assert_array_equal(masks[2][:, 2], [F, F, F, T, T])
+
+
+# ------------------------------------------ the kernel's sort form, modelled
+FLT_MAX = np.finfo(np.float32).max
+#: the largest fp32 below FLT_MAX: still the sort form's
+BELOW_MAX = np.nextafter(FLT_MAX, np.float32(0))
+
+
+def _sort_form_coords(xs):
+    """(n,) bool over the coordinates of a (K, 1, n) fp32 stack of scaled
+    values: True where every value has magnitude below FLT_MAX, which
+    ``csrc/robust_agg.cu`` hands to its sort form; the rest (a NaN, an
+    inf or a +-FLT_MAX among the values) take its pass form."""
+    return np.all(np.abs(xs) < FLT_MAX, axis=0)[0]
+
+
+def _sort_count_mask(xs, trim):
+    """The sort form's survivor mask of a (K, 1, n) fp32 stack, in numpy,
+    as the kernel builds it: hi = s[K-trim] and lo = s[trim-1] of the
+    values sorted ascending; every v > hi and every v < lo goes, then the
+    trim - #{v > hi} entries == hi of lowest k, then of the entries == lo
+    still alive the trim - #{v < lo} of lowest k (-0 == +0)."""
+    K = xs.shape[0]
+    if trim == 0:
+        return np.ones(xs.shape, bool)
+    s = np.sort(xs, axis=0)
+    hi, lo = s[K - trim], s[trim - 1]
+    gt, lt = xs > hi, xs < lo
+    eq_hi = xs == hi
+    top = eq_hi & (np.cumsum(eq_hi, axis=0) <= trim - gt.sum(0))
+    eq_lo = (xs == lo) & ~top
+    bottom = eq_lo & (np.cumsum(eq_lo, axis=0) <= trim - lt.sum(0))
+    return ~(gt | lt | top | bottom)
+
+
+def _masks_of_both_packages(xs, trim):
+    want = tref.survivor_mask(torch.from_numpy(xs), trim).numpy()
+    np.testing.assert_array_equal(
+        want, np.asarray(j_survivor_mask(jnp.asarray(xs), trim)))
+    return want
+
+
+def _tie_stack(K, seed):
+    """A (K, 1, 12) fp32 stack of finite values with heavy ties: columns
+    drawn from {-2, -1, -0, +0, 1, 2}, from {-0, +0}, from {+-1, +-BELOW_MAX},
+    normal values each repeated, one all-equal column, and columns whose
+    ties sit at both trim boundaries (a few distinct values, each many
+    times)."""
+    rs = np.random.default_rng(seed)
+    cols = [rs.choice(np.array([-2, -1, -0.0, 0.0, 1, 2], np.float32), K)
+            for _ in range(4)]
+    cols.append(rs.choice(np.array([-0.0, 0.0], np.float32), K))
+    cols.append(rs.choice(np.array([-BELOW_MAX, -1, 1, BELOW_MAX],
+                                   np.float32), K))
+    cols.append(np.repeat(rs.standard_normal(K // 2 + 1), 2)[:K])
+    cols.append(rs.permutation(np.repeat(rs.standard_normal(3), K)[:K]))
+    cols.append(np.full(K, 3.0))
+    cols.append(np.sort(rs.choice(np.array([-1, 0, 1], np.float32), K)))
+    cols.append(rs.standard_normal(K))
+    cols.append(np.repeat(np.float32([5, 7]), K)[:K])
+    return np.stack(cols, 1).astype(np.float32)[:, None, :]
+
+
+@pytest.mark.parametrize("K", range(1, 66))
+def test_sort_count_rule_is_the_survivor_mask(K):
+    """On coordinates whose values all have magnitude below FLT_MAX, the
+    kernel's sort-and-count rule gives the 2*trim argmax passes' mask
+    bitwise, for every 0 <= trim < K/2 (the port's plain version and the
+    JAX package's ``_survivor_mask``)."""
+    xs = _tie_stack(K, seed=K)
+    assert _sort_form_coords(xs).all()
+    for trim in range(0, (K - 1) // 2 + 1):
+        np.testing.assert_array_equal(_sort_count_mask(xs, trim),
+                                      _masks_of_both_packages(xs, trim),
+                                      err_msg=f"K={K} trim={trim}")
+
+
+TIE_VALUES = np.array([-BELOW_MAX, -2.0, -1.0, -0.0, 0.0, 1.0, 2.0,
+                       BELOW_MAX], np.float32)
+
+
+@hypothesis.settings(max_examples=100, deadline=None, database=None,
+                     derandomize=True)
+@hypothesis.given(data=hst.data())
+def test_sort_count_rule_on_drawn_stacks(data):
+    """The same on hypothesis-made (K, 1, 8) stacks, K in 1..65: values
+    drawn from a few tie-heavy ones (+-0 and +-BELOW_MAX among them) or
+    from every finite fp32 of magnitude below FLT_MAX.  Every trim against
+    the port's plain version, a drawn one also against the JAX package's
+    (the two are equal, above)."""
+    K = data.draw(hst.integers(1, 65), label="K")
+    ties = hst.sampled_from(TIE_VALUES.tolist())
+    anything = hst.floats(-float(BELOW_MAX), float(BELOW_MAX), width=32)
+    xs = data.draw(hnp.arrays(np.float32, (K, 1, 8),
+                              elements=hst.one_of(ties, ties, anything)),
+                   label="xs")
+    assert _sort_form_coords(xs).all()
+    for trim in range(0, (K - 1) // 2 + 1):
+        np.testing.assert_array_equal(
+            _sort_count_mask(xs, trim),
+            tref.survivor_mask(torch.from_numpy(xs), trim).numpy(),
+            err_msg=f"K={K} trim={trim}")
+    trim = data.draw(hst.integers(0, (K - 1) // 2), label="trim")
+    np.testing.assert_array_equal(_sort_count_mask(xs, trim),
+                                  _masks_of_both_packages(xs, trim))
+
+
+def test_pass_form_takes_exactly_the_special_coordinates():
+    """The kernel routes a coordinate to its pass form exactly when a NaN,
+    an inf or a +-FLT_MAX is among its scaled values (a finite wire times
+    its scale that overflows counts as inf).  The sort rule agrees with
+    the passes on every other coordinate, and for each special kind there
+    is a coordinate where it would not: the -FLT_MAX fill of removed
+    entries ties with -FLT_MAX and beats -inf, and a NaN has no place in
+    a sort."""
+    M, inf, nan = FLT_MAX, np.inf, np.nan
+    cols = {  # name: (values, sort form, a trim where the rule differs)
+        "finite": ([9, -1, -1, 4, 0, -0.0], True, None),
+        "below max": ([BELOW_MAX, -BELOW_MAX, 1, 1, -1, 2], True, None),
+        "+-0 ties": ([0.0, -0.0, -0.0, 0.0, 0.0, -0.0], True, None),
+        "-FLT_MAX": ([9, -M, -M, -M, -M, -M], False, 2),
+        "+FLT_MAX": ([-9, M, M, M, M, M], False, 2),
+        "-inf": ([9, -inf, -inf, -inf, -inf, -inf], False, 2),
+        "+inf": ([inf, inf, inf, inf, inf, 1], False, 2),
+        "NaN": ([nan, 1, 2, 3, 4, 5], False, 1),
+        "overflow": ([1, 2, 3, 4, 5, 6], False, None),
+    }
+    xs = np.array([v for v, _, _ in cols.values()], np.float32).T[:, None]
+    scales = np.ones((6, 1, 1), np.float32)
+    scales[:, 0, 0] = [1, 1, 1, 1, 1, 1e38]    # 6e38 > FLT_MAX: inf
+    with np.errstate(over="ignore"):
+        xs = np.where(np.arange(len(cols)) == len(cols) - 1, xs * scales,
+                      xs)
+    want_sort = [sort for _, sort, _ in cols.values()]
+    np.testing.assert_array_equal(_sort_form_coords(xs), want_sort)
+    for trim in (1, 2):
+        model = _sort_count_mask(xs, trim)
+        mask = _masks_of_both_packages(xs, trim)
+        for j, (name, (_, sort, differs_at)) in enumerate(cols.items()):
+            if sort:
+                np.testing.assert_array_equal(model[..., j], mask[..., j],
+                                              err_msg=name)
+            elif differs_at == trim:
+                assert not np.array_equal(model[..., j], mask[..., j]), name
 
 
 def test_wrappers_reject_bad_inputs():

@@ -143,6 +143,57 @@ def test_wrapper_rejects_bad_inputs():
                                  inplace=True, **HP)
 
 
+def _at_offset(x, offset):
+    """A contiguous view of ``x``'s values ``offset`` elements into its
+    storage."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def test_kernel_form_follows_dtypes_and_alignment():
+    """The wrapper launches the kernel's fp32 form only when all eight
+    tensors are fp32 and 16-byte aligned (decided from dtypes and
+    ``data_ptr() % 16``, the same for tensors on either device)."""
+    ins = _t(_inputs((N, R, C)))
+    outs = [torch.empty_like(x) for x in ins[:3]]
+    assert tk.takes_f32x4(*outs, *ins)
+    assert tk.takes_f32x4(*(_at_offset(x, 4) for x in ins))   # 16 bytes
+    for k in range(5):
+        moved = list(ins)
+        moved[k] = _at_offset(ins[k], 1)
+        assert moved[k].is_contiguous()
+        assert not tk.takes_f32x4(*outs, *moved)
+        for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
+            narrow = list(ins)
+            narrow[k] = ins[k].to(dt)
+            assert not tk.takes_f32x4(*outs, *narrow)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(7, 999), (1, 3)], ids=["7x999", "1x3"])
+def test_ragged_and_offset_views_bitwise_vs_jax_eager_ref(shape, offset):
+    """Shapes the fp32 form covers with its scalar tail (n % 4 != 0) and
+    views that send the kernel to its runtime-dtype form, through the
+    wrapper (its plain version on the CPU), flat and batched, out of
+    place and in place: bitwise the JAX package's eager ref."""
+    xs = _inputs(shape, seed=11)
+    want = jref.sophia_update_ref(*(jnp.asarray(x) for x in xs), 1, lr=LR,
+                                  **HP)
+    for entry, lift in ((tk.sophia_update_flat, lambda x: x),
+                        (tk.sophia_update_batched, lambda x: x[None])):
+        for inplace in (False, True):
+            ins = [lift(_at_offset(x, offset)) for x in _t(xs)]
+            got = entry(*ins, 1, LR, inplace=inplace, **HP)
+            for g_, w in zip(got, want):
+                np.testing.assert_array_equal(
+                    g_.reshape(shape).numpy().view(np.uint32),
+                    np.asarray(w).view(np.uint32))
+            if inplace:
+                assert all(a is b for a, b in zip(got, ins[:3]))
+
+
 def test_registry_marks_sophia_update_ported():
     from repro.kernels import KERNELS as JKERNELS
     assert tuple(KERNELS) == JKERNELS
