@@ -17,8 +17,10 @@ without chunked dispatch, async, under a straggler profile) and the
 adversarial fleet (sign-flip with trimmed mean and coordinate median on
 a Dirichlet(0.1) partition, random wires into a trimmed mean on the
 comm path, a scale attack under norm-clip in semisync), and the pytree
-Sophia step; checks small rounds and scheduler runs against the same
-on the CPU, and times each kernel with CUDA events.  Every path runs
+Sophia step (one launch of the kernel a step; one profiled call must
+show that kernel alone); checks small rounds and scheduler runs against
+the same on the CPU, sweeps the grids of the Sophia and quantize
+kernels' fp32 forms, and times each kernel with CUDA events.  Every path runs
 with the launch counts set to 0 just before it and read just after.
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
@@ -484,12 +486,29 @@ def same_bits(label, name, got, want) -> float:
     return worst
 
 
+#: the quant entries' two forms on fp32: (label, shape, x offset, noise
+#: offset, qmax, NaN/inf, fp32 form); a 3D shape goes to the batched entry
+QUANT_FORMS = [
+    ("flat quant MLP-128 int8", MLP_PACKED, 0, 0, 127, False, True),
+    ("flat quant MLP-128 int4 NaN/inf", MLP_PACKED, 0, 0, 7, True, True),
+    ("flat quant x offset 1", MLP_PACKED, 1, 0, 127, True, False),
+    ("flat quant noise offset 1", (7, 1000), 0, 1, 7, False, False),
+    ("flat quant C % 4 = 2", (7, 1002), 0, 0, 127, True, False),
+    ("flat quant C % 4 = 3", (5, 3), 0, 0, 7, False, False),
+    ("batched quant x16 int4 NaN/inf", (CLIENTS // 2,) + MLP_PACKED, 0, 0,
+     7, True, True),
+    ("batched quant x offset 1", (3, 7, 1000), 1, 0, 127, True, False),
+    ("batched quant C % 4 = 2", (3, 7, 1002), 0, 0, 7, True, False),
+]
+
+
 def check_quant_kernels(device):
     """Each quantize entry point against its plain version on the card,
     bitwise: at the main path's shapes; at a ragged (3, 7, 1000) with
     fp32, bf16, e4m3 and e5m2 state, the shared operand shared and
     stacked; with NaN and inf; zero rows and clipped codes in every
-    case; and the shared operand against its materialised stack."""
+    case; the shared operand against its materialised stack; and both
+    forms of the quant entries on fp32 (`QUANT_FORMS`)."""
     N, (R, C) = CLIENTS, MLP_PACKED
     cases = [  # (label, shape, store, shared, special, qmax)
         ("MLP-128 x 32 fp32 int8", (N, R, C), torch.float32, True, False,
@@ -534,6 +553,29 @@ def check_quant_kernels(device):
                                              qmax=127))
     sync()
     print("  shared (R, C) operand == materialised stack, bitwise")
+    for i, (label, shape, xo, uo, qmax, special, f32x4) in enumerate(
+            QUANT_FORMS):
+        name = ("quant_roundtrip_batched" if len(shape) == 3
+                else "quant_roundtrip_flat")
+        x, _, _, u, s = quant_inputs(shape, device, SEED + 80 + i,
+                                     special=special, qmax=qmax)
+        if special:
+            x.reshape(-1)[:: 97] = float("inf")
+            x.reshape(-1)[1:: 89] = -float("inf")
+        x, u = at_offset(x, xo), at_offset(u, uo)
+        if tq.quant_takes_f32x4(torch.empty_like(x), x, u) != f32x4:
+            raise SystemExit(f"kernel check {label}: the wrapper would not "
+                             f"take the {'fp32' if f32x4 else 'runtime'} "
+                             "form")
+        before = tq.LAUNCHES[name]
+        got = getattr(tq, name)(x, u, s, qmax=qmax)
+        sync()
+        if tq.LAUNCHES[name] != before + 1:
+            raise SystemExit(f"kernel check {label}: {name} did not launch")
+        err[name] = max(err[name], same_bits(
+            label, name, got, kref.quant_roundtrip_ref(x, u, s, qmax=qmax)))
+        print(f"  {label:30s} {shape} "
+              f"{'fp32' if f32x4 else 'runtime-dtype'} form, bitwise equal")
     return err
 
 
@@ -772,14 +814,7 @@ def mlp_trees(device, seed):
     (h and h_hat non-negative)."""
     params = MLPTask(hidden=mlp_mnist.HIDDEN).init(gen(device, seed),
                                                    device)
-    g = gen(device, seed + 1)
-
-    def like(scale, positive=False):
-        t = {k: scale * torch.randn(v.shape, generator=g, device=device)
-             for k, v in params.items()}
-        return {k: v.abs() for k, v in t.items()} if positive else t
-    return [params, like(0.1), like(0.01, True), like(0.5),
-            like(0.02, True)]
+    return trees_like(params, seed + 1)
 
 
 def fused_step_plain(trees, do_h, lr):
@@ -791,26 +826,110 @@ def fused_step_plain(trees, do_h, lr):
     return tuple(tflat.unpack(o, spec) for o in outs)
 
 
+def trees_like(params, seed, overflow=False):
+    """The five trees of a step on ``params``: m and h in each params
+    leaf's dtype (as `init_state` makes them), g and h_hat fp32 (h and
+    h_hat non-negative); ``overflow`` scales g and h_hat past the fp8
+    ranges."""
+    g = gen(params[next(iter(params))].device, seed)
+
+    def like(scale, positive=False, keep=False):
+        out = {}
+        for k, v in params.items():
+            t = scale * torch.randn(v.shape, generator=g, device=v.device)
+            t = t.abs() if positive else t
+            out[k] = t.to(v.dtype) if keep else t
+        return out
+    big = 1e4 if overflow else 1.0
+    return [params, like(0.1, keep=True), like(0.01, True, keep=True),
+            like(0.5 * big), like(0.02 * big * big, True)]
+
+
+def fused_step_cases(device):
+    """(label, trees, launches, do_h values) of the pytree step's checks:
+    the MLP-128 and CNN trees; leaves that take each form of the kernel
+    in one launch (fp32 aligned with n % 4 != 0, offset-1 views, one
+    params leaf per dtype with fp8 overflow, m narrower than params, NaN
+    and inf); more leaves than the cap (one launch per
+    `ops.MAX_LEAVES`)."""
+    cases = [(f"MLP-128 pytree do_h={d}", mlp_trees(device, SEED + 400 + d),
+              1, (d,)) for d in (0, 1)]
+    cnn = CNNTask(channels=cnn_mnist.CHANNELS).init(gen(device, SEED + 402),
+                                                     device)
+    cases.append(("CNN pytree", trees_like(cnn, SEED + 403), 1, (0, 1)))
+    rs = np.random.default_rng(SEED + 404)
+    shapes = {"a": (64, 32), "b": (1,), "c": (3,), "d": (10,),
+              "e": (7, 143), "f": (33, 64), "g": (40, 40), "h": (31,),
+              "i": (2, 257), "j": (1000,)}
+    params = {k: torch.tensor(rs.standard_normal(sh), dtype=torch.float32,
+                              device=device) for k, sh in shapes.items()}
+    params["f"] = at_offset(params["f"], 1)
+    for k, dt in zip("ghi", STORES[1:]):
+        params[k] = params[k].to(dt)
+    trees = trees_like(params, SEED + 405, overflow=True)
+    trees[1]["j"] = trees[1]["j"].to(torch.bfloat16)
+    trees[3]["a"] = at_offset(trees[3]["a"], 1)
+    trees[2]["e"][0, :3] = float("nan")
+    trees[3]["d"][:2] = float("inf")
+    cases.append(("ragged, offset 1, every dtype, NaN/inf", trees, 1,
+                  (0, 1)))
+    for leaves in (33, 98):
+        params = {f"p{i:03d}": torch.tensor(
+            rs.standard_normal(1 + (i * 389) % 2000), dtype=torch.float32,
+            device=device) for i in range(leaves)}
+        cases.append((f"{leaves} leaves", trees_like(params, SEED + leaves),
+                      -(-leaves // ops.MAX_LEAVES), (1,)))
+    return cases
+
+
 def check_fused_step(device):
-    """The pytree route on the MLP-128 trees against its plain version,
-    bitwise, for do_h 0 and 1."""
+    """The pytree route against its plain version, bitwise, for do_h 0
+    and 1 (`fused_step_cases`): its launches as many as the cap gives,
+    none of the flat Sophia entry, each output leaf in its params leaf's
+    dtype."""
     err = 0.0
-    for do_h in (0, 1):
-        trees = mlp_trees(device, SEED + 400 + do_h)
-        before = ops.LAUNCHES["sophia_fused_step"]
-        got = ops.sophia_fused_step(*trees, do_h, lr=LR, **HP)
-        sync()
-        if ops.LAUNCHES["sophia_fused_step"] != before + 1:
-            raise SystemExit("kernel check: sophia_fused_step did not "
-                             "launch")
-        want = fused_step_plain(trees, do_h, LR)
-        for g_, w_ in zip(got, want):
-            for k in w_:
-                err = max(err, same_bits(f"fused step do_h={do_h} {k}",
-                                         "sophia_fused_step", g_[k], w_[k]))
-        print(f"  sophia_fused_step MLP-128 pytree do_h={do_h} bitwise "
-              "equal")
+    for label, trees, launches, do_hs in fused_step_cases(device):
+        for do_h in do_hs:
+            ops.reset_launches()
+            tk.reset_launches()
+            got = ops.sophia_fused_step(*trees, do_h, lr=LR, **HP)
+            sync()
+            if (ops.LAUNCHES["sophia_fused_step"] != launches
+                    or any(tk.LAUNCHES.values())):
+                raise SystemExit(f"kernel check {label}: launches "
+                                 f"{ops.LAUNCHES} {tk.LAUNCHES}, want "
+                                 f"{launches} of sophia_fused_step only")
+            want = fused_step_plain(trees, do_h, LR)
+            for g_, w_ in zip(got, want):
+                for k in w_:
+                    err = max(err, same_bits(f"fused step {label} {k}",
+                                             "sophia_fused_step", g_[k],
+                                             w_[k]))
+        print(f"  sophia_fused_step {label:40s} {launches} launch(es), "
+              "bitwise equal")
+    profile_fused_step(device)
     return {"sophia_fused_step": err}
+
+
+def profile_fused_step(device):
+    """One pytree step on the MLP-128 trees under `torch.profiler`: its
+    device activities must be the one launch of the kernel, with no
+    pack's `cat` or `pad` and no unpack's copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trees = mlp_trees(device, SEED + 410)
+    ops.sophia_fused_step(*trees, 1, lr=LR, **HP)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.sophia_fused_step(*trees, 1, lr=LR, **HP)
+        sync()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    print(f"  sophia_fused_step profiled: device activities {names}")
+    if len(names) != 1 or "sophia_leaves_kernel" not in names[0]:
+        raise SystemExit("profile: the pytree step ran other device work "
+                         f"than its one kernel: {names}")
 
 
 # --------------------------------------------------------------- main path
@@ -1070,8 +1189,7 @@ def main_path(device):
             raise SystemExit(f"{label}: local loss did not fall: {losses}")
 
     label = "sophia-pytree MLP-128"
-    secs = drive_pytree(label, device, data,
-                        expect(sophia_fused_step=J, sophia_update_flat=J))
+    secs = drive_pytree(label, device, data, expect(sophia_fused_step=J))
     record(label, [secs])
     return launches, steady
 
@@ -1169,7 +1287,7 @@ def chunk_band(label, task, fed, data, events, device, chunked):
 
 def drive_pytree(label, device, data, want):
     """J local steps of the pytree Sophia step (`core.sophia.sophia_step`,
-    whose CUDA route is the pack, the kernel, the unpack) on one
+    whose CUDA route is one launch of the kernel's pytree form) on one
     client's MLP-128 params, a GNB refresh every tau steps, with the
     launch counts set to 0 just before and read just after.  Returns
     host seconds per step."""
@@ -1659,6 +1777,30 @@ def sweep_sophia_grid(device):
         tk.F32X4_BLOCKS_PER_SM = keep
 
 
+def sweep_quant_grid(device):
+    """Device ms of the quant round-trip's fp32 form at the main path's
+    shapes for each block size (a thread per float4 group), the flat
+    entry walking the 32 client slices as in `time_kernels`, the batched
+    entry on the whole stack.  Sets nothing: the wrapper's block size is
+    chosen from these numbers by hand."""
+    N, (R, C) = CLIENTS, MLP_PACKED
+    th, _, _, u, s = quant_inputs((N, R, C), device, SEED + 98, qmax=127)
+    keep = tq.F32X4_THREADS
+    try:
+        for threads in (64, 128, 256, 512):
+            tq.F32X4_THREADS = threads
+            flat = time_ms(lambda i: tq.quant_roundtrip_flat(
+                th[i % N], u[i % N], s[i % N], qmax=127))
+            batched = time_ms(lambda i: tq.quant_roundtrip_batched(
+                th, u, s, qmax=127))
+            grids = [-(-(n * C // 4) // threads) for n in (R, N * R)]
+            print(f"quant fp32 form, {threads} threads a block (grids "
+                  f"{grids[0]}, {grids[1]}): flat {flat} ms, batched "
+                  f"{batched} ms")
+    finally:
+        tq.F32X4_THREADS = keep
+
+
 def time_kernels(device):
     """Every kernel and its plain version at the main path's shapes,
     fp32.  A flat entry walks the 32 client slices of a stack in turn,
@@ -1667,6 +1809,7 @@ def time_kernels(device):
     (32 clients; 16 for the downlink of the bidir path, where half the
     clients take part)."""
     sweep_sophia_grid(device)
+    sweep_quant_grid(device)
     N, R, C = (CLIENTS,) + MLP_PACKED
     ins = sophia_inputs((N, R, C), device, SEED + 99)
     lr = torch.tensor(LR)

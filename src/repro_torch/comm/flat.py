@@ -31,6 +31,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import store_as
+
 #: magic + version of the serialized wire-buffer format.  Version 2
 #: carries the resident-state dtype in the flags byte; version-1
 #: headers (flags = 0) still decode, as float32.
@@ -244,7 +246,7 @@ def pack(tree: Dict[str, torch.Tensor], spec: FlatSpec,
     parts = [tree[k].reshape(lead + (-1,)).to(torch.float32)
              for k in spec.keys]
     v = F.pad(torch.cat(parts, dim=-1), (0, spec.padded - spec.total))
-    return v.reshape(lead + (spec.rows, spec.cols)).to(dtype)
+    return store_as(v.reshape(lead + (spec.rows, spec.cols)), dtype)
 
 
 def unpack(flat: torch.Tensor, spec: FlatSpec) -> Dict[str, torch.Tensor]:
@@ -257,7 +259,7 @@ def unpack(flat: torch.Tensor, spec: FlatSpec) -> Dict[str, torch.Tensor]:
     off = 0
     for k, sz, shp, dt in zip(spec.keys, spec.sizes, spec.shapes,
                               spec.dtypes):
-        out[k] = v[..., off:off + sz].reshape(lead + shp).to(dt)
+        out[k] = store_as(v[..., off:off + sz].reshape(lead + shp), dt)
         off += sz
     return out
 

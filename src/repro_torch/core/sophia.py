@@ -6,9 +6,9 @@ package:
 * the pytree form (`sophia_step` and its parts), over parameter dicts:
   the reference the paper-facing code reads.  On the card it always
   runs the fused kernel through
-  `repro_torch.kernels.ops.sophia_fused_step` (pack, the kernel of
-  ``csrc/sophia_update.cu``, unpack); on the CPU, the per-leaf tensor
-  arithmetic of its parts;
+  `repro_torch.kernels.ops.sophia_fused_step` (one launch of the pytree
+  form of ``csrc/sophia_update.cu`` over the leaves where they lie); on
+  the CPU, the per-leaf tensor arithmetic of its parts;
 * the flat form (`sophia_step_flat`), over packed wire buffers: what the
   round engine calls, the kernel fed directly with no pack or unpack.
 """
@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.ref import store_as
 from repro_torch.kernels.sophia_update import (sophia_update_batched,
                                                sophia_update_flat)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_zeros_like
@@ -55,7 +56,7 @@ def apply_update(params, m, h, *, lr: float, rho: float, eps: float,
         dtype = theta.dtype
         theta = theta - lr * weight_decay * theta
         step = clip(mm / torch.clamp(hh, min=eps), rho)
-        return (theta - lr * step).to(dtype)
+        return store_as(theta - lr * step, dtype)
     return tree_map(leaf, params, m, h)
 
 
@@ -64,7 +65,7 @@ def sophia_step(params, grads, state: SophiaState, h_hat, do_h_update, *,
     """One full local iteration of Alg. 1 (lines 7-16) over parameter
     dicts.  ``h_hat``: the GNB estimate (read only when
     ``do_h_update``, a host bool).  The device decides the route: CUDA
-    trees run the fused kernel once over the packed trees, CPU trees the
+    trees run the fused kernel once over the trees' leaves, CPU trees the
     per-leaf tensor arithmetic.  Returns ``(params, SophiaState)``."""
     if tree_leaves(params)[0].device.type == "cuda":
         from repro_torch.kernels.ops import sophia_fused_step

@@ -4,6 +4,7 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/quantize.py:
 //   quant_roundtrip_kernel     <- _quant_kernel     (quant_roundtrip_flat,
 //                                                    quant_roundtrip_batched)
+//   quant_roundtrip_f32x4_kernel  its fp32 form      (both entries)
 //   uplink_roundtrip_kernel    <- _uplink_kernel    (uplink_roundtrip_flat,
 //                                                    uplink_roundtrip_batched)
 //   broadcast_roundtrip_kernel <- _broadcast_kernel (broadcast_roundtrip_flat,
@@ -33,8 +34,19 @@
 // no element needs an integer division to find its scale.  A shared
 // (R, C) operand (uplink's `start` when every client trained from one
 // model, broadcast's server `theta`) is read at row % R, never
-// materialised per client.  Vectorised 16-byte loads, in-kernel Philox
-// noise and a fused per-row max are later work.
+// materialised per client.  In-kernel Philox noise and a fused per-row
+// max are later work.
+//
+// The quant round-trip has a second, fp32 form
+// (quant_roundtrip_f32x4_kernel), taken per launch when x and out are fp32,
+// x, u and out are 16-byte aligned and C % 4 == 0: no dtype switch, a
+// thread per float4 group of x (a group never straddles two rows), one
+// float4 of x and one of u issued before use with the evict-first hint,
+// the group's row scale by one load that the warp's threads share.  What
+// held the row-per-block form back was latency, not bytes: at (116, 1024)
+// 116 blocks, each thread walking its four columns one by one, every
+// element behind a runtime dtype switch and a separate 4-byte noise load.
+// Its block size is chosen from chip_smoke.py's sweep_quant_grid.
 //
 // The biased compressors, one fp32 scalar v per client (the flat entry is
 // one client), computed outside the kernel as the JAX package does:
@@ -64,6 +76,8 @@ namespace {
 using namespace repro_torch;
 
 constexpr int kThreads = 256;
+// the most threads a block of the fp32 quant form may take
+constexpr int kMaxF32x4Threads = 512;
 
 __device__ __forceinline__ float quant(float x, float s, float safe,
                                        float u, float qmax) {
@@ -86,6 +100,30 @@ __global__ void __launch_bounds__(kThreads) quant_roundtrip_kernel(
       from_f32(out, i, c_x, quant(to_f32(x, i, c_x), s, safe, u[i], qmax));
     }
   }
+}
+
+// `groups` float4 groups of x, `groups_per_row` of them a row (C / 4);
+// a thread per group.
+__global__ void __launch_bounds__(kMaxF32x4Threads)
+    quant_roundtrip_f32x4_kernel(float* __restrict__ out,
+                                 const float* __restrict__ x,
+                                 const float* __restrict__ u,
+                                 const float* __restrict__ scale,
+                                 int64_t groups, int64_t groups_per_row,
+                                 float qmax) {
+  const int64_t j =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= groups) return;
+  const float4 xv = __ldcs(reinterpret_cast<const float4*>(x) + j);
+  const float4 uv = __ldcs(reinterpret_cast<const float4*>(u) + j);
+  const float s = __ldg(scale + j / groups_per_row);
+  const float safe = s > 0.0f ? s : 1.0f;
+  float4 o;
+  o.x = quant(xv.x, s, safe, uv.x, qmax);
+  o.y = quant(xv.y, s, safe, uv.y, qmax);
+  o.z = quant(xv.z, s, safe, uv.z, qmax);
+  o.w = quant(xv.w, s, safe, uv.w, qmax);
+  __stcs(reinterpret_cast<float4*>(out) + j, o);
 }
 
 // `start` holds start_rows rows (R when shared by every client, N*R when
@@ -192,6 +230,25 @@ extern "C" int quant_roundtrip_launch(void* out, const void* x,
   quant_roundtrip_kernel<<<blocks, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       out, x, u, scale, c_x, rows, cols, qmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 form: x, u, out fp32 and 16-byte aligned, cols % 4 == 0;
+// `threads` (at most 512) a block, `blocks` enough for a thread per float4
+// group.
+extern "C" int quant_roundtrip_f32x4_launch(float* out, const float* x,
+                                            const float* u,
+                                            const float* scale,
+                                            int64_t rows, int cols,
+                                            float qmax, int blocks,
+                                            int threads, void* stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaSuccess);
+  if (cols % 4 != 0 || threads < 1 || threads > kMaxF32x4Threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  quant_roundtrip_f32x4_kernel<<<blocks, threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      out, x, u, scale, rows * (cols / 4), cols / 4, qmax);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,7 +40,23 @@
 // pairs carry no __restrict__.  Each element is read and then written by
 // the same thread, and a thread's loads precede its stores.
 //
-// Bits: built with -fmad=false and IEEE division, so both forms are
+// The pytree form (`sophia_leaves_kernel`; replaces the pack, the flat
+// launch and the unpack of `kernels/ops.py: sophia_fused_step`, the port
+// of src/repro/kernels/ops.py:32): one launch over up to kMaxLeaves leaves
+// of the five parameter trees, read where they lie, the three results
+// written to fresh leaves.  The leaf table (8 pointers, n, 6 dtype codes
+// and the float4 flag per leaf, plus each leaf's first block) rides in the
+// kernel's parameters as a __grid_constant__ struct, inside the classic
+// 4 KB: no copy to the device, no allocation.  Each leaf owns a run of
+// blocks; a block finds its leaf by a uniform scan over the first-block
+// entries, and each thread owns four consecutive coordinates of it.  A
+// leaf whose operands are all fp32 and whose eight pointers are 16-byte
+// aligned takes the fp32 form's body (float4 loads issued before use and
+// stores, evict-first); any other leaf, and the n % 4 tail, the
+// runtime-dtype loads and stores.  All three results are stored in the
+// params leaf's dtype, as the unpack of the packed route stores them.
+//
+// Bits: built with -fmad=false and IEEE division, so every form is
 // bitwise the op-by-op PyTorch version (kernels/ref.py) on the card.
 // (1-b1), (1-b2) arrive precomputed in double and rounded to fp32 once,
 // as the Python-double expressions of the JAX body are.  max() and the
@@ -156,6 +172,80 @@ __global__ void __launch_bounds__(kThreads) sophia_update_kernel(
   }
 }
 
+// Leaves per launch of the pytree form (the wrapper's `ops.MAX_LEAVES`;
+// the launcher refuses more): the table below stays inside the
+// classic 4 KB of kernel parameters (2,696 bytes of table at 32 leaves,
+// 80 a leaf)
+constexpr int kMaxLeaves = 32;
+
+struct Leaf {
+  void* out[3];        // theta_out, m_out, h_out
+  const void* in[5];   // theta, m, h, g, h_hat
+  int64_t n;
+  int8_t code[6];      // dtype codes: the outputs', then the five inputs'
+  int8_t f32x4;        // every operand fp32, every pointer 16-byte aligned
+};
+
+struct LeafTable {
+  int leaves;
+  int first_block[kMaxLeaves + 1];   // [leaves]: the grid's size
+  Leaf leaf[kMaxLeaves];
+};
+static_assert(sizeof(LeafTable) + sizeof(Hyper) <= 4096,
+              "the leaf table must fit the classic 4 KB of parameters");
+
+__global__ void __launch_bounds__(kThreads) sophia_leaves_kernel(
+    const __grid_constant__ LeafTable t, Hyper p) {
+  // the block's leaf: the last whose first block is at or before it (a
+  // leaf of no blocks is never chosen); uniform across the block
+  int l = 0;
+  for (int k = 1; k < t.leaves; ++k) {
+    l = static_cast<int>(blockIdx.x) >= t.first_block[k] ? k : l;
+  }
+  const Leaf& d = t.leaf[l];
+  const int64_t i0 =
+      4 * (static_cast<int64_t>(blockIdx.x - t.first_block[l]) * kThreads +
+           threadIdx.x);
+  if (i0 >= d.n) return;
+  if (d.f32x4 && i0 + 4 <= d.n) {
+    const int64_t j = i0 >> 2;
+    const float4 th = __ldcs(static_cast<const float4*>(d.in[0]) + j);
+    const float4 mm = __ldcs(static_cast<const float4*>(d.in[1]) + j);
+    const float4 hv = __ldcs(static_cast<const float4*>(d.in[2]) + j);
+    const float4 gv = __ldcs(static_cast<const float4*>(d.in[3]) + j);
+    const float4 hh = __ldcs(static_cast<const float4*>(d.in[4]) + j);
+    float4 to, mo, ho;
+    sophia_quad(p, th, mm, hv, gv, hh, to, mo, ho);
+    __stcs(static_cast<float4*>(d.out[0]) + j, to);
+    __stcs(static_cast<float4*>(d.out[1]) + j, mo);
+    __stcs(static_cast<float4*>(d.out[2]) + j, ho);
+    return;
+  }
+  // runtime-dtype loads of up to four coordinates, all issued before use
+  const int cnt = d.n - i0 < 4 ? static_cast<int>(d.n - i0) : 4;
+  float v[5][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (u < cnt) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        v[k][u] = to_f32(d.in[k], i0 + u, d.code[k + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (u < cnt) {
+      float th, mo, ho;
+      sophia_coord(p, v[0][u], v[1][u], v[2][u], v[3][u], v[4][u], th, mo,
+                   ho);
+      from_f32(d.out[0], i0 + u, d.code[0], th);
+      from_f32(d.out[1], i0 + u, d.code[0], mo);
+      from_f32(d.out[2], i0 + u, d.code[0], ho);
+    }
+  }
+}
+
 }  // namespace
 
 // Both launches run on `stream` (PyTorch's current stream), allocate
@@ -193,6 +283,42 @@ extern "C" int sophia_update_f32x4_launch(
       theta_out, m_out, h_out, theta, m, h, g, h_hat, n,
       Hyper{do_h, lr, beta1, one_minus_beta1, beta2, one_minus_beta2, rho,
             eps, weight_decay});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pytree form over `leaves` (1..kMaxLeaves) leaves: per leaf l, the
+// pointers ptrs[8l..8l+7] (theta_out, m_out, h_out, theta, m, h, g,
+// h_hat), n[l], codes[6l..6l+5] (the outputs' dtype code, then the five
+// inputs'), f32x4[l] and first_block[l]; first_block[leaves] is the grid.
+// Copies the table into the launch's parameters; keeps no pointer to the
+// host arrays.
+extern "C" int sophia_leaves_launch(
+    void* const* ptrs, const int64_t* n, const int* codes, const int* f32x4,
+    const int* first_block, int leaves, float do_h, float lr, float beta1,
+    float one_minus_beta1, float beta2, float one_minus_beta2, float rho,
+    float eps, float weight_decay, void* stream) {
+  if (leaves < 1 || leaves > kMaxLeaves) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (first_block[leaves] <= 0) return static_cast<int>(cudaSuccess);
+  LeafTable t{};
+  t.leaves = leaves;
+  for (int l = 0; l < leaves; ++l) {
+    Leaf& d = t.leaf[l];
+    for (int k = 0; k < 3; ++k) d.out[k] = ptrs[8 * l + k];
+    for (int k = 0; k < 5; ++k) d.in[k] = ptrs[8 * l + 3 + k];
+    d.n = n[l];
+    for (int k = 0; k < 6; ++k) {
+      d.code[k] = static_cast<int8_t>(codes[6 * l + k]);
+    }
+    d.f32x4 = static_cast<int8_t>(f32x4[l] != 0);
+    t.first_block[l] = first_block[l];
+  }
+  t.first_block[leaves] = first_block[leaves];
+  sophia_leaves_kernel<<<first_block[leaves], kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      t, Hyper{do_h, lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+               rho, eps, weight_decay});
   return static_cast<int>(cudaGetLastError());
 }
 

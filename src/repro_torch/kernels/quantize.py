@@ -14,10 +14,12 @@ with ``(N, R, 1)`` row scales or ``(N,)`` client scalars, and is bitwise
 the looped ``*_flat`` entry.
 
 For CUDA tensors each entry point validates its inputs and launches its
-kernel on PyTorch's current stream, or raises.  For CPU tensors it runs
-the plain version from `ref`; that is the only case in which the plain
-version runs.  ``LAUNCHES`` counts kernel launches per entry point (CPU
-calls count nothing).
+kernel on PyTorch's current stream, or raises.  The quant entries take
+their kernel's fp32 form where `quant_takes_f32x4` allows, else its
+runtime-dtype form.  For CPU tensors it runs the plain version from
+`ref`; that is the only case in which the plain version runs.
+``LAUNCHES`` counts kernel launches per entry point (CPU calls count
+nothing).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 #: argtypes of each C launcher (csrc/quantize.cu)
 _ARGTYPES = {
     "quant_roundtrip_launch": [_P] * 4 + [_I, _I64, _I, _F, _I, _P],
+    "quant_roundtrip_f32x4_launch": [_P] * 4 + [_I64, _I, _F, _I, _I, _P],
     "uplink_roundtrip_launch": [_P] * 7 + [_I] * 3
                                + [_I64, _I, _I64, _F, _I, _P],
     "broadcast_roundtrip_launch": [_P] * 7 + [_I] * 3
@@ -56,6 +59,12 @@ _ARGTYPES = {
 }
 #: elements per work item of the per-client kernels (one block's threads)
 CHUNK = 256
+
+#: threads a block of the quant kernel's fp32 form, a thread per float4
+#: group (one (R, 1024) row a block).  From the card's times in
+#: `chip_smoke.py: sweep_quant_grid` (H100, 700 W): 64 to 512 within 3.4%
+#: of each other flat and 1.8% batched, 256 the fastest flat
+F32X4_THREADS = 256
 
 
 def reset_launches() -> None:
@@ -134,12 +143,28 @@ def _check(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
+def quant_takes_f32x4(out, x, noise) -> bool:
+    """Whether a quant launch takes the kernel's fp32 form: ``x`` and
+    ``out`` fp32, the float4 operands (``out``, ``x``, ``noise``) 16-byte
+    aligned, and rows of a multiple of 4 columns."""
+    return (x.dtype == torch.float32 and out.dtype == torch.float32
+            and x.shape[-1] % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (out, x, noise)))
+
+
 def _quant(name, ndim, x, noise, scale, qmax):
     kind = _validate(name, ndim, [("x", x)], noise, scale)
     if kind == "cpu":
         return quant_roundtrip_ref(x, noise, scale, qmax=qmax)
     out = torch.empty_like(x)
     rows, cols, blocks, stream = _geometry(x)
+    if quant_takes_f32x4(out, x, noise):
+        _check(name, _kernel_fn("quant_roundtrip_f32x4_launch")(
+            out.data_ptr(), x.data_ptr(), noise.data_ptr(),
+            scale.data_ptr(), rows, cols, float(qmax),
+            max(1, -(-(x.numel() // 4) // F32X4_THREADS)), F32X4_THREADS,
+            stream))
+        return out
     _check(name, _kernel_fn("quant_roundtrip_launch")(
         out.data_ptr(), x.data_ptr(), noise.data_ptr(), scale.data_ptr(),
         DTYPE_CODES[x.dtype], rows, cols, float(qmax), blocks, stream))

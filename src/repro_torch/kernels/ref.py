@@ -3,13 +3,31 @@ and what `chip_smoke.py` holds each kernel against on the card.
 
 Dtype contract (as the JAX package's): every ref upcasts its operands to
 fp32, computes in fp32, and stores each output in the corresponding
-input's dtype.  The ops run one by one in the JAX reference's order, so
-at fp32 on the CPU the result is bitwise the JAX package's eager
-``kernels/ref.py``.
+input's dtype by `store_as`.  The ops run one by one in the JAX
+reference's order, so at fp32 on the CPU the result is bitwise the JAX
+package's eager ``kernels/ref.py``.
 """
 from __future__ import annotations
 
 import torch
+
+#: e4m3's overflow bound: ml_dtypes (the JAX package's fp8 type) rounds
+#: magnitudes up to it to at most 448 and stores NaN past it, as the
+#: kernels do (``csrc/dtype_io.cuh``)
+E4M3_OVERFLOW = 464.0
+
+
+def store_as(x, dtype):
+    """``x`` stored in ``dtype`` by ml_dtypes' rule, as the JAX package
+    stores it: round to nearest even; NaN stays NaN.  For e4m3, NaN with
+    x's sign past +-464 and for +-inf: those values are masked before
+    ``Tensor.to``, which saturates them to +-448 in some torch versions
+    and not in others.  bf16 and e5m2 by ``Tensor.to``."""
+    if dtype == torch.float8_e4m3fn:
+        x = torch.where(x.abs() > E4M3_OVERFLOW,
+                        torch.copysign(torch.full_like(x, float("nan")), x),
+                        x)
+    return x.to(dtype)
 
 
 def sophia_update_ref(theta, m, h, g, h_hat, do_h, *, lr, beta1, beta2,
@@ -31,8 +49,8 @@ def sophia_update_ref(theta, m, h, g, h_hat, do_h, *, lr, beta1, beta2,
     h = do_h * h_new + (1.0 - do_h) * h
     theta = theta - lr * weight_decay * theta                      # line 15
     step = torch.clamp(m / torch.clamp(h, min=eps), -rho, rho)     # Eq. 11
-    return ((theta - lr * step).to(out_dt[0]), m.to(out_dt[1]),    # line 16
-            h.to(out_dt[2]))
+    return (store_as(theta - lr * step, out_dt[0]),               # line 16
+            store_as(m, out_dt[1]), store_as(h, out_dt[2]))
 
 
 def quant_roundtrip_ref(x, noise, scale, *, qmax):
@@ -43,7 +61,7 @@ def quant_roundtrip_ref(x, noise, scale, *, qmax):
     safe = torch.where(scale > 0, scale, 1.0)
     q = torch.clamp(torch.floor(x.to(torch.float32) / safe + noise),
                     -qmax, qmax)
-    return (q * scale).to(x.dtype)
+    return store_as(q * scale, x.dtype)
 
 
 def uplink_roundtrip_ref(theta, start, ef, noise, scale, *, qmax):
@@ -54,7 +72,7 @@ def uplink_roundtrip_ref(theta, start, ef, noise, scale, *, qmax):
     d = (theta.to(torch.float32) - start.to(torch.float32)) \
         + ef.to(torch.float32)
     xhat = quant_roundtrip_ref(d, noise, scale, qmax=qmax)
-    return xhat.to(theta.dtype), (d - xhat).to(theta.dtype)
+    return store_as(xhat, theta.dtype), store_as(d - xhat, theta.dtype)
 
 
 def broadcast_roundtrip_ref(theta, ref, ef, noise, scale, *, qmax):
@@ -65,7 +83,8 @@ def broadcast_roundtrip_ref(theta, ref, ef, noise, scale, *, qmax):
     r = ref.to(torch.float32)
     d = (theta.to(torch.float32) - r) + ef.to(torch.float32)
     xhat = quant_roundtrip_ref(d, noise, scale, qmax=qmax)
-    return (r + xhat).to(theta.dtype), (d - xhat).to(theta.dtype)
+    return (store_as(r + xhat, theta.dtype),
+            store_as(d - xhat, theta.dtype))
 
 
 def _per_client(s, x):
@@ -85,7 +104,8 @@ def sign(x):
 def sign_roundtrip_ref(x, scale):
     """``scale * sign(x)`` in x's dtype; ``scale`` a scalar, or ``(N,)``
     per client of a ``(N, R, C)`` stack."""
-    return (_per_client(scale, x) * sign(x.to(torch.float32))).to(x.dtype)
+    return store_as(_per_client(scale, x) * sign(x.to(torch.float32)),
+                    x.dtype)
 
 
 def topk_threshold_ref(x, thr):
@@ -93,7 +113,8 @@ def topk_threshold_ref(x, thr):
     ``|x| >= thr``, 0 elsewhere (NaN compares false and becomes 0);
     ``thr`` a scalar, or ``(N,)`` per client."""
     xf = x.to(torch.float32)
-    return torch.where(xf.abs() >= _per_client(thr, x), xf, 0.0).to(x.dtype)
+    return store_as(torch.where(xf.abs() >= _per_client(thr, x), xf, 0.0),
+                    x.dtype)
 
 
 def stale_accum_ref(wires, weights, inv_norm):

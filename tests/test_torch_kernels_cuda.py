@@ -479,8 +479,8 @@ def test_robust_wrappers_raise_on_card_inputs_they_do_not_take(card):
 
 @pytest.mark.cuda
 def test_sophia_fused_step_bitwise_vs_plain(card):
-    """The pytree route: pack, the Sophia kernel, unpack, against the
-    plain update of the same packed buffers."""
+    """The pytree route (one launch of the kernel's multi-leaf form)
+    against the plain update of the same trees packed, then unpacked."""
     rs = np.random.default_rng(5)
     shapes = {"w1": (784, 16), "b1": (16,), "w2": (16, 10), "b2": (10,)}
 
@@ -527,3 +527,178 @@ def test_pytree_sophia_step_launches_fused_kernel(card):
     for gt, wt in zip((got, state.m, state.h), want):
         for k in shapes:
             _same_fp32(gt[k], wt[k])
+
+
+# ---------------------------------------- the pytree step's multi-leaf form
+def _fused_plain(trees, do_h):
+    """Row 3's plain version: the pack, the plain update, the unpack (all
+    three results in the params leaves' dtypes)."""
+    spec = tflat.flat_spec(trees[0], cols=ops.BLOCK_C)
+    outs = sophia_update_ref(*(tflat.pack(t, spec) for t in trees), do_h,
+                             lr=LR, **HP)
+    return [tflat.unpack(o, spec) for o in outs]
+
+
+def _trees_like(params, seed, overflow=False):
+    """m, h, g, h_hat trees of ``params``' shapes: m and h in each params
+    leaf's dtype (as `init_state` makes them), g and h_hat fp32.
+    ``overflow`` scales g and h_hat past the fp8 ranges."""
+    g = torch.Generator(device=next(iter(params.values())).device)
+    g.manual_seed(seed)
+    dev = g.device
+
+    def like(scale, positive=False, keep_dtype=False):
+        out = {}
+        for k, v in params.items():
+            t = scale * torch.randn(v.shape, generator=g, device=dev)
+            t = t.abs() if positive else t
+            out[k] = t.to(v.dtype) if keep_dtype else t
+        return out
+    big = 1e4 if overflow else 1.0
+    return [params, like(0.1, keep_dtype=True),
+            like(0.01, True, keep_dtype=True), like(0.5 * big),
+            like(0.02 * big * big, True)]
+
+
+def _check_fused(trees, launches, do_h=1):
+    """One call of the pytree step on the card: ``launches`` launches of
+    its kernel and none of the flat Sophia entry, every output leaf
+    bitwise the plain version."""
+    ops.reset_launches()
+    tk.reset_launches()
+    got = ops.sophia_fused_step(*trees, do_h, lr=LR, **HP)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sophia_fused_step"] == launches
+    assert sum(tk.LAUNCHES.values()) == 0
+    for g_, w_ in zip(got, _fused_plain(trees, do_h)):
+        assert sorted(g_) == sorted(w_)
+        for k in w_:
+            assert g_[k].dtype == trees[0][k].dtype
+            _bitwise((g_[k],), (w_[k],))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mlp128", "cnn"])
+@pytest.mark.parametrize("do_h", [0, 1])
+def test_fused_step_model_trees_one_launch(card, model, do_h):
+    """The MLP-128 (six leaves, b3 of 10 coordinates) and CNN pytrees:
+    one launch of the multi-leaf form, no pack, bitwise."""
+    from repro_torch.models.small import CNNTask, MLPTask
+    task = MLPTask(hidden=128) if model == "mlp128" else CNNTask(
+        channels=(16, 32))
+    params = task.init(torch.Generator(device=card).manual_seed(3), card)
+    _check_fused(_trees_like(params, 4 + do_h), 1, do_h)
+
+
+@pytest.mark.cuda
+def test_fused_step_leaf_forms_and_dtypes(card):
+    """Leaves that take each form in one launch: fp32 aligned, fp32 with
+    n % 4 != 0 (1, 3, 10, 1001 coordinates), offset-1 views (the
+    runtime-dtype form for that leaf only), one leaf per params dtype
+    (fp32, bf16, e4m3, e5m2; m and h in the same dtype) with g and h_hat
+    past the fp8 ranges, and a leaf whose m is stored narrower than its
+    params leaf; NaN and inf in some leaves."""
+    rs = np.random.default_rng(12)
+    shapes = {"a": (64, 32), "b": (1,), "c": (3,), "d": (10,),
+              "e": (7, 143), "f": (33, 64), "g": (40, 40), "h": (31,),
+              "i": (2, 257), "j": (1000,)}
+    params = {k: torch.tensor(rs.standard_normal(s), dtype=torch.float32,
+                              device=card) for k, s in shapes.items()}
+    params["f"] = _at_offset(params["f"], 1)
+    params["g"] = params["g"].to(torch.bfloat16)
+    params["h"] = params["h"].to(torch.float8_e4m3fn)
+    params["i"] = params["i"].to(torch.float8_e5m2)
+    trees = _trees_like(params, 13, overflow=True)
+    trees[1]["j"] = trees[1]["j"].to(torch.bfloat16)     # m narrower
+    trees[3]["a"] = _at_offset(trees[3]["a"], 1)          # g at offset 1
+    trees[2]["e"][0, :3] = float("nan")
+    trees[3]["d"][:2] = float("inf")
+    leaves = [(k, (params[k],) * 3 + tuple(t[k] for t in trees))
+              for k in sorted(params)]
+    (table,) = ops.leaf_table(leaves, 1024)
+    assert dict(zip(table.keys, table.f32x4)) == {
+        "a": False, "b": True, "c": True, "d": True, "e": True, "f": False,
+        "g": False, "h": False, "i": False, "j": False}
+    for do_h in (0, 1):
+        _check_fused(trees, 1, do_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves", [32, 33, 98])
+def test_fused_step_splits_past_the_cap(card, leaves):
+    """More leaves than `ops.MAX_LEAVES`: one launch per 32, bitwise."""
+    rs = np.random.default_rng(leaves)
+    params = {f"p{i:03d}": torch.tensor(
+        rs.standard_normal(1 + (i * 389) % 2000), dtype=torch.float32,
+        device=card) for i in range(leaves)}
+    _check_fused(_trees_like(params, leaves), -(-leaves // ops.MAX_LEAVES))
+
+
+# ------------------------------------------- the quant round-trip's forms
+QUANT_FORM_CASES = {  # name: (shape, x offset, noise offset, qmax, special,
+    #                          fp32 form); a 3D shape takes the batched entry
+    "MLP-128 int8": ((116, 1024), 0, 0, 127, False, True),
+    "MLP-128 int4": ((116, 1024), 0, 0, 7, False, True),
+    "NaN/inf int8": ((116, 1024), 0, 0, 127, True, True),
+    "ragged int4": ((7, 1000), 0, 0, 7, True, True),
+    "x offset 1": ((116, 1024), 1, 0, 127, False, False),
+    "noise offset 1": ((7, 1000), 0, 1, 7, True, False),
+    "cols % 4 = 2": ((7, 1002), 0, 0, 127, True, False),
+    "cols % 4 = 3": ((5, 3), 0, 0, 7, False, False),
+    "batched x16 NaN/inf int4": ((16, 116, 1024), 0, 0, 7, True, True),
+    "batched noise offset 1": ((3, 7, 1000), 0, 1, 127, True, False),
+    "batched cols % 4 = 2": ((3, 7, 1002), 0, 0, 7, True, False),
+}
+
+
+def _quant_form_inputs(card, shape, qmax, special, seed):
+    """x, U[0,1) noise and row scales of x: every 7th row zero (scale
+    0), rows 1 mod 5 with quartered scales (codes clip at +-qmax);
+    ``special`` puts NaN and +-inf into x and a NaN and an inf scale."""
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal(shape).astype(np.float32)
+    x[..., ::7, :] = 0.0
+    s = (np.abs(x).max(-1, keepdims=True) / qmax).astype(np.float32)
+    s[..., 1::5, :] /= 4
+    if special:
+        flat = x.reshape(-1)
+        flat[rs.integers(0, flat.size, 16)] = np.nan
+        flat[rs.integers(0, flat.size, 8)] = np.inf
+        flat[rs.integers(0, flat.size, 8)] = -np.inf
+        s.reshape(-1)[2:4] = np.nan, np.inf
+    u = rs.uniform(size=shape).astype(np.float32)
+    return [torch.tensor(a, device=card) for a in (x, u, s)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(QUANT_FORM_CASES))
+def test_quant_forms_bitwise_vs_plain(card, name):
+    """The quant entries on fp32: the fp32 form where x, noise and out
+    are 16-byte aligned and C % 4 == 0, else the runtime-dtype form; one
+    launch per call, bitwise the plain version (zero-scale rows, clipped
+    codes, NaN and +-inf inputs and scales included)."""
+    shape, xo, uo, qmax, special, f32x4 = QUANT_FORM_CASES[name]
+    x, u, s = _quant_form_inputs(card, shape, qmax, special, 17)
+    x, u = _at_offset(x, xo), _at_offset(u, uo)
+    assert tq.quant_takes_f32x4(torch.empty_like(x), x, u) == f32x4
+    entry = ("quant_roundtrip_batched" if len(shape) == 3
+             else "quant_roundtrip_flat")
+    tq.reset_launches()
+    got = getattr(tq, entry)(x, u, s, qmax=qmax)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES == dict.fromkeys(tq.LAUNCHES, 0) | {entry: 1}
+    _bitwise((got,), (ref.quant_roundtrip_ref(x, u, s, qmax=qmax),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [64, 128, 256, 512])
+def test_quant_fp32_form_every_swept_block_size(card, threads, monkeypatch):
+    """Each block size `chip_smoke.py: sweep_quant_grid` tries gives the
+    same bits, flat and batched."""
+    monkeypatch.setattr(tq, "F32X4_THREADS", threads)
+    for shape, qmax in (((116, 1024), 127), ((3, 7, 1000), 7)):
+        x, u, s = _quant_form_inputs(card, shape, qmax, True, 19)
+        entry = (tq.quant_roundtrip_batched if len(shape) == 3
+                 else tq.quant_roundtrip_flat)
+        got = entry(x, u, s, qmax=qmax)
+        _bitwise((got,), (ref.quant_roundtrip_ref(x, u, s, qmax=qmax),))

@@ -346,3 +346,146 @@ def test_biased_cpu_calls_launch_nothing_and_bad_inputs_raise():
         tq.sign_roundtrip_flat(tx[0], 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         tq.topk_threshold_batched(tx.transpose(1, 2), ts)
+
+
+# ------------------------------------------------ e4m3 stores on the CPU
+#: magnitudes that walk e4m3's overflow rule (ml_dtypes: 464 rounds to
+#: 448, NaN past it and for +-inf, NaN stays NaN)
+E4M3_EDGE = np.array([447.0, 448.0, 464.0, 470.0, 500.0, 1e5, np.inf,
+                      np.nan], np.float32)
+
+
+@pytest.mark.parametrize("store", ["bf16", "e4m3", "e5m2"])
+def test_store_as_follows_ml_dtypes(store):
+    """`ref.store_as` against ml_dtypes' cast (what ``astype`` does in the
+    JAX package) over the overflow edges, their neighbours one fp32 ulp
+    away, subnormals, +-0, and log-uniform magnitudes across every
+    format's range: bitwise for e4m3 (NaN sign included), NaN as NaN
+    for bf16 and e5m2 (``Tensor.to`` writes its own NaN payload)."""
+    tdt, jdt = DTYPES[store]
+    rs = np.random.default_rng(31)
+    edges = np.concatenate([E4M3_EDGE, [57344.0, 61439.0, 61440.0, 3e38,
+                                        2.0 ** -9, 2.0 ** -10, 2.0 ** -17,
+                                        0.0]]).astype(np.float32)
+    near = np.concatenate([np.nextafter(edges, np.float32(np.inf)),
+                           np.nextafter(edges, np.float32(0))])
+    spread = (2.0 ** rs.uniform(-20, 20, 4000)).astype(np.float32)
+    x = np.concatenate([edges, near, spread])
+    x = np.concatenate([x, -x])
+    want = np.asarray(jnp.asarray(x).astype(jdt))
+    got = tref.store_as(torch.from_numpy(x), tdt)
+    if store == "e4m3":
+        _bitwise(got, want)
+        assert (want.view(np.uint8)[x == np.float32(464)] == 0x7E).all()
+    else:
+        _bitwise_nan(got, want)
+
+
+def _e4(x):
+    """fp32 numpy -> (torch e4m3, jnp e4m3), cast once by JAX."""
+    jx = jnp.asarray(np.asarray(x, np.float32)).astype(jnp.float8_e4m3fn)
+    return (torch.from_numpy(np.asarray(jx).view(np.uint8).copy()).view(
+        torch.float8_e4m3fn), jx)
+
+
+def _rows(cols=8):
+    """theta, other, ef (e4m3-exact) rows whose delta ``(theta - other)
+    + ef`` is 447, 448, 464, 470, 500 and 1344 and their negatives, each
+    row constant over ``cols``."""
+    tri = np.array([[448, 1, 0], [448, 0, 0], [240, -224, 0],
+                    [448, -22, 0], [448, -52, 0], [448, -448, 448]],
+                   np.float32)
+    tri = np.concatenate([tri, -tri])
+    return [np.repeat(tri[:, k:k + 1], cols, axis=1) for k in range(3)]
+
+
+def _noise_for(x, s):
+    """U[0,1) noise per row that sends ``floor(x / s + u)`` to +-1 for the
+    rows' x of +-448 (clipped into [0, 1))."""
+    r = np.abs(x / s)
+    u = np.where(x > 0, 1.5 - r, r - 0.5)
+    return np.clip(u, 0.0, np.float32(1 - 2 ** -24)).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["quant", "uplink", "broadcast", "sign",
+                                "topk"])
+def test_e4m3_overflow_stores_bitwise_vs_jax_eager_refs(fn):
+    """Every plain version with an e4m3 output, on inputs whose fp32
+    results walk `E4M3_EDGE` (and 1344, 896, NaN and inf scales), against
+    the JAX package's eager refs: bitwise, a NaN as NaN (sign and payload
+    of arithmetic NaNs are the framework's own).  ``Tensor.to`` alone
+    saturates these stores at 448 in some torch versions."""
+    qmax = 127
+    if fn == "quant":
+        mags = np.concatenate([E4M3_EDGE, E4M3_EDGE])
+        sign = np.repeat([1.0, -1.0], E4M3_EDGE.size).astype(np.float32)
+        x = np.repeat((448 * sign)[:, None], 8, axis=1)
+        s = mags[:, None].astype(np.float32)
+        u = np.repeat(_noise_for(x[:, :1], s), 8, axis=1)
+        tx, jx = _e4(x)
+        calls = [(lambda: tref.quant_roundtrip_ref(tx, torch.from_numpy(u),
+                                                   torch.from_numpy(s),
+                                                   qmax=qmax),
+                  jref.quant_roundtrip_ref(jx, jnp.asarray(u),
+                                           jnp.asarray(s), qmax=qmax)),
+                 (lambda: tq.quant_roundtrip_flat(tx, torch.from_numpy(u),
+                                                  torch.from_numpy(s),
+                                                  qmax=qmax), None)]
+    elif fn in ("uplink", "broadcast"):
+        theta, other, ef = _rows()
+        d = (theta - other) + ef
+        # q = +-1 (xhat = d) in the first copy, +-2 (xhat = 2d) in the
+        # second; a NaN and an inf scale in the third
+        s = np.concatenate([np.abs(d[:, :1]), np.abs(d[:, :1]) / 2,
+                            np.abs(d[:, :1])]).astype(np.float32)
+        s[-2:, 0] = [np.nan, np.inf]
+        theta, other, ef = (np.concatenate([a] * 3) for a in (theta, other,
+                                                                ef))
+        u = np.full(theta.shape, 0.5, np.float32)
+        (tt, jt), (to, jo), (te, je) = (_e4(a) for a in (theta, other, ef))
+        tu, ts = torch.from_numpy(u), torch.from_numpy(s)
+        ju, js = jnp.asarray(u), jnp.asarray(s)
+        if fn == "uplink":
+            calls = [(lambda: tref.uplink_roundtrip_ref(tt, to, te, tu, ts,
+                                                        qmax=qmax),
+                      jref.uplink_roundtrip_ref(jt, jo, je, ju, js,
+                                                qmax=qmax)),
+                     (lambda: tq.uplink_roundtrip_flat(tt, to, te, tu, ts,
+                                                       qmax=qmax), None)]
+        else:
+            calls = [(lambda: tref.broadcast_roundtrip_ref(tt, to, te, tu,
+                                                           ts, qmax=qmax),
+                      jref.broadcast_roundtrip_ref(jt, jo, je, ju, js,
+                                                   qmax=qmax)),
+                     (lambda: tq.broadcast_roundtrip_flat(tt, to, te, tu,
+                                                          ts, qmax=qmax),
+                      None)]
+    else:
+        rs = np.random.default_rng(33)
+        n = 2 * E4M3_EDGE.size
+        x = np.where(rs.uniform(size=(n, 2, 8)) < 0.5, -1.0, 1.0)
+        x[:, 0, :3] = [448.0, -448.0, np.nan]
+        v = np.concatenate([E4M3_EDGE, -E4M3_EDGE]).astype(np.float32)
+        if fn == "topk":
+            v = np.abs(v)
+        tx, jx = _e4(x)
+        tv, jv = torch.from_numpy(v), jnp.asarray(v)
+        tfn = tref.sign_roundtrip_ref if fn == "sign" else \
+            tref.topk_threshold_ref
+        jfn = jref.sign_roundtrip_ref if fn == "sign" else \
+            jref.topk_threshold_ref
+        batched = tq.sign_roundtrip_batched if fn == "sign" else \
+            tq.topk_threshold_batched
+        calls = [(lambda: tfn(tx, tv), jfn(jx, jv)),
+                 (lambda: batched(tx, tv), None)]
+    want = calls[0][1]
+    for call, _ in calls:
+        got = call()
+        got = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, wants):
+            _bitwise_nan(g, w)
+    first = np.asarray(wants[0], np.float32)
+    if fn != "topk":    # a threshold only keeps or zeroes stored values
+        assert np.isnan(first).sum() >= 4 * 8
+    assert (first == 448).any() and (first == -448).any()

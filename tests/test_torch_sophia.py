@@ -238,9 +238,10 @@ def test_pytree_sophia_step_matches_jax(do_h):
     routes.  `sophia_step` on CPU trees is the per-leaf route: it runs
     the JAX pytree form's ops in its order, bitwise its eager run.  The
     kernel route that `sophia_step` takes for CUDA trees
-    (`kernels.ops.sophia_fused_step`: pack, the Sophia update, unpack),
-    called directly here, against the JAX package's, the Pallas kernel
-    in interpret mode: rtol=atol=1e-6 (XLA's FMA contraction)."""
+    (`kernels.ops.sophia_fused_step`; on the CPU its plain version: pack,
+    the Sophia update, unpack), called directly here, against the JAX
+    package's, the Pallas kernel in interpret mode: rtol=atol=1e-6
+    (XLA's FMA contraction)."""
     from repro.core import sophia as jsophia
     from repro_torch.core import sophia as tsophia
     from repro_torch.kernels import ops
@@ -299,3 +300,186 @@ def test_pytree_helpers():
         v.numel() for v in tree_leaves(tp))
     with pytest.raises(ValueError, match="keys"):
         tree_map(torch.add, tp, {"w1": tp["w1"]})
+
+
+# ------------------------------------------------ e4m3 stores on the CPU
+#: stored values that walk e4m3's overflow rule (ml_dtypes: 464 rounds
+#: to 448, NaN past it and for +-inf, NaN stays NaN), and their negatives
+E4M3_EDGE = np.array([447.0, 448.0, 464.0, 470.0, 500.0, 1e5, np.inf,
+                      np.nan], np.float32)
+
+
+def _same_nan_as_nan(got, want):
+    """Bitwise, but a NaN need only be NaN in both (the payload and sign
+    of a NaN that arithmetic makes are the framework's own)."""
+    w = np.asarray(want)
+    assert str(got.dtype).split(".")[-1] == w.dtype.name
+    assert got.shape == w.shape
+    nan = np.isnan(w.astype(np.float32))
+    np.testing.assert_array_equal(np.isnan(got.float().numpy()), nan)
+    raw_g = got.view(torch.uint8).numpy().reshape(got.numel(), -1)
+    raw_w = w.view(np.uint8).reshape(w.size, -1)
+    np.testing.assert_array_equal(raw_g[~nan.reshape(-1)],
+                                  raw_w[~nan.reshape(-1)])
+
+
+@pytest.mark.parametrize("do_h", [0, 1])
+def test_e4m3_overflow_stores_bitwise_vs_jax_eager_ref(do_h):
+    """theta, m and h stored in e4m3, with beta1 = beta2 = 0.5 so that m
+    and h land exactly on `E4M3_EDGE` (m = g / 2, h = h_hat / 2 from 0):
+    the plain version, directly and through both CPU wrappers, stores
+    what the JAX package's eager ref stores (ml_dtypes' rule), where
+    ``Tensor.to`` alone saturates at 448 in some torch versions."""
+    hp = dict(HP, beta1=0.5, beta2=0.5)
+    vals = np.concatenate([E4M3_EDGE, -E4M3_EDGE])
+    rs = np.random.default_rng(21)
+    n = 4 * vals.size
+    theta = rs.standard_normal(n).astype(np.float32)
+    g = np.tile(2 * vals, 4)
+    hh = np.abs(g)
+    zeros = np.zeros(n, np.float32)
+    e4 = jnp.float8_e4m3fn
+    jx = [jnp.asarray(theta).astype(e4), jnp.asarray(zeros).astype(e4),
+          jnp.asarray(zeros).astype(e4), jnp.asarray(g), jnp.asarray(hh)]
+    want = jref.sophia_update_ref(*jx, jnp.float32(do_h),
+                                  lr=jnp.float32(LR), **hp)
+    assert np.isnan(np.asarray(want[1], np.float32)).sum() >= 4 * 8
+    assert (np.asarray(want[1], np.float32) == 448.0).sum() >= 4 * 2
+    tx = [torch.from_numpy(np.asarray(x).view(np.uint8).copy()).view(
+        torch.float8_e4m3fn) for x in jx[:3]] + _t((g, hh))
+    for got in (sophia_update_ref(*tx, do_h, lr=LR, **hp),
+                tk.sophia_update_flat(*(x.reshape(4, -1) for x in tx),
+                                      do_h, LR, **hp),
+                tk.sophia_update_batched(*(x.reshape(2, 2, -1) for x in tx),
+                                         do_h, LR, **hp)):
+        for g_, w in zip(got, want):
+            _same_nan_as_nan(g_.reshape(-1), w)
+
+
+# --------------------------------- the pytree step's CPU route and its table
+def _jax_packed_eager(trees, do_h):
+    """The JAX package's pytree form with its eager ref in the kernel's
+    place: its pack, ``repro.kernels.ref.sophia_update_ref``, its unpack."""
+    from repro.comm.flat import flat_spec as jspec
+    from repro.comm.flat import pack as jpack
+    from repro.comm.flat import unpack as junpack
+    spec = jspec(trees[0], cols=1024)
+    outs = jref.sophia_update_ref(*(jpack(t, spec) for t in trees),
+                                  jnp.float32(do_h), lr=jnp.float32(LR),
+                                  **HP)
+    return [junpack(o, spec) for o in outs]
+
+
+@pytest.mark.parametrize("do_h", [0, 1])
+def test_fused_step_cpu_route_vs_jax_and_per_leaf(do_h):
+    """`ops.sophia_fused_step` on CPU trees (its plain version: pack, the
+    plain update, unpack) on the MLP-16 pytree:
+
+    * bitwise the JAX package's pack / eager ref / unpack;
+    * against ``repro.kernels.ops.sophia_fused_step(..., interpret=True)``
+      within rtol=atol=1e-6: the jitted Pallas body contracts mul+add
+      into FMAs (thousands of m coordinates an ulp off);
+    * bitwise the port's per-leaf `sophia_step` CPU route;
+    * all three results in the params leaves' dtypes, also when m is
+      stored narrower (the JAX package unpacks with the params' layout).
+    """
+    from repro.kernels import ops as jops
+    from repro_torch.core import sophia as tsophia
+    from repro_torch.kernels import ops
+    (jp, jg, jhh, jm, jh), (tp, tg, thh, tm, th) = _mlp_trees(7 + do_h)
+    ops.reset_launches()
+    got = ops.sophia_fused_step(tp, tm, th, tg, thh, do_h, lr=LR, **HP)
+    assert ops.LAUNCHES["sophia_fused_step"] == 0
+    eager = _jax_packed_eager([jp, jm, jh, jg, jhh], do_h)
+    interp = jops.sophia_fused_step(jp, jm, jh, jg, jhh, do_h, lr=LR, **HP,
+                                    interpret=True)
+    params, state = tsophia.sophia_step(tp, tg, tsophia.SophiaState(tm, th),
+                                        thh, bool(do_h), lr=LR, **HP)
+    for g_, e, i, p in zip(got, eager, interp, (params, state.m, state.h)):
+        assert sorted(g_) == sorted(tp)
+        for k in tp:
+            np.testing.assert_array_equal(g_[k].numpy(), np.asarray(e[k]))
+            np.testing.assert_allclose(g_[k].numpy(), np.asarray(i[k]),
+                                       rtol=1e-6, atol=1e-6)
+            assert torch.equal(g_[k], p[k])
+    narrow_m = {k: v.to(torch.bfloat16) for k, v in tm.items()}
+    got = ops.sophia_fused_step(tp, narrow_m, th, tg, thh, do_h, lr=LR, **HP)
+    eager = _jax_packed_eager(
+        [jp, {k: v.astype(jnp.bfloat16) for k, v in jm.items()}, jh, jg,
+         jhh], do_h)
+    for g_, e in zip(got, eager):
+        for k in tp:
+            assert g_[k].dtype == torch.float32
+            np.testing.assert_array_equal(g_[k].numpy(), np.asarray(e[k]))
+
+
+def test_fused_step_rejects_trees_it_does_not_take():
+    from repro_torch.kernels import ops
+    _, (tp, tg, thh, tm, th) = _mlp_trees(4)
+    with pytest.raises(ValueError, match="keys"):
+        ops.sophia_fused_step(tp, {"w1": tm["w1"]}, th, tg, thh, 1, lr=LR,
+                              **HP)
+    with pytest.raises(ValueError, match="shape"):
+        ops.sophia_fused_step(tp, tm, th, dict(tg, b1=tg["b1"][:3]), thh, 1,
+                              lr=LR, **HP)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.sophia_fused_step(tp, tm, th, dict(tg, b1=tg["b1"].double()),
+                              thh, 1, lr=LR, **HP)
+
+
+def _leaf_model(ns, f32x4, coords_per_block, cap):
+    """numpy model of the leaf table: per launch, the first block of each
+    leaf of at least one coordinate and the grid (a running sum of
+    ceil(n / coords_per_block)), and its float4 flags."""
+    keep = [(n, f) for n, f in zip(ns, f32x4) if n > 0]
+    out = []
+    for s in range(0, len(keep), cap):
+        part = keep[s:s + cap]
+        blocks = np.array([-(-n // coords_per_block) for n, _ in part])
+        out.append((np.concatenate([[0], np.cumsum(blocks)]).tolist(),
+                    [f for _, f in part], [n for n, _ in part]))
+    return out
+
+
+def _leaf(n, kind, seed):
+    """One leaf's eight tensors (theta_out, m_out, h_out, theta, m, h, g,
+    h_hat) of ``n`` coordinates: ``aligned`` fp32 fresh allocations,
+    ``offset1`` with theta a view one element into its storage, or the
+    params leaf (and so the outputs) ``bf16``."""
+    xs = [torch.tensor(x) for x in _inputs((n,), seed)]
+    if kind == "offset1":
+        xs[0] = _at_offset(xs[0], 1)
+    if kind == "bf16":
+        xs[0] = xs[0].to(torch.bfloat16)
+    outs = [torch.empty_like(xs[0]) for _ in range(3)]
+    return tuple(outs + xs)
+
+
+@pytest.mark.parametrize("leaves", [1, 6, 32, 33, 98])
+def test_leaf_table_against_numpy_model(leaves):
+    """`ops.leaf_table` on CPU tensors (the host side of the kernel's
+    pytree form): first blocks, per-leaf float4 flags for aligned,
+    offset-1 and bf16 leaves (n % 4 != 0 and empty leaves among them),
+    the dtype codes and pointers, and the split into launches of at most
+    ``MAX_LEAVES`` (cap, cap + 1 and 3 cap + 2 leaves)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.build import DTYPE_CODES
+    assert ops.MAX_LEAVES == 32
+    kinds = ("aligned", "offset1", "bf16")
+    ns = [0 if i % 11 == 10 else 1 + (i * 397) % 3000 for i in range(leaves)]
+    tensors = [_leaf(n, kinds[i % 3], i) for i, n in enumerate(ns)]
+    flags = [kinds[i % 3] == "aligned" for i in range(leaves)]
+    launches = ops.leaf_table(list(zip(map(str, range(leaves)), tensors)),
+                              1024)
+    model = _leaf_model(ns, flags, 1024, ops.MAX_LEAVES)
+    assert len(launches) == len(model) == -(-sum(n > 0 for n in ns) // 32)
+    kept = [(str(i), ts) for i, ts in enumerate(tensors) if ns[i] > 0]
+    for j, (t, (first, f32x4, nn)) in enumerate(zip(launches, model)):
+        part = kept[32 * j:32 * (j + 1)]
+        assert list(t.first_block) == first
+        assert list(t.f32x4) == f32x4
+        assert list(t.ns) == nn
+        assert t.keys == tuple(k for k, _ in part)
+        assert list(t.ptrs) == [x.data_ptr() for _, ts in part for x in ts]
+        assert list(t.codes) == [DTYPE_CODES[x.dtype] for _, ts in part
+                                 for x in ts[2:]]
