@@ -19,9 +19,12 @@ a Dirichlet(0.1) partition, random wires into a trimmed mean on the
 comm path, a scale attack under norm-clip in semisync), and the pytree
 Sophia step (one launch of the kernel a step; one profiled call must
 show that kernel alone); checks small rounds and scheduler runs against
-the same on the CPU, sweeps the grids of the Sophia and quantize
-kernels' fp32 forms, and times each kernel with CUDA events.  Every path runs
-with the launch counts set to 0 just before it and read just after.
+the same on the CPU, sweeps the grids of the Sophia, quantize, uplink
+and stale-accumulate kernels' fp32 forms, and times each kernel with CUDA
+events (the 16-client batched ones also on copies past the L2).  Every
+path runs with the launch counts set to 0 just before it and read just
+after; the bidir-int8-ef sequential path must also have taken the uplink
+kernel's fp32 form at every launch.
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
@@ -502,13 +505,69 @@ QUANT_FORMS = [
 ]
 
 
+#: the uplink entries' two forms: (label, shape, shared start, theta
+#: dtype, ef dtype, theta offset, noise offset, fp32 form); a 3D shape
+#: goes to the batched entry
+F32, BF16, E4M3 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+UPLINK_FORMS = [
+    ("flat uplink MLP-128", MLP_PACKED, False, F32, F32, 0, 0, True),
+    ("flat uplink ragged", (7, 1000), False, F32, F32, 0, 0, True),
+    ("batched uplink x32 shared start", (CLIENTS,) + MLP_PACKED, True, F32,
+     F32, 0, 0, True),
+    ("batched uplink stacked start", (3, 7, 1000), False, F32, F32, 0, 0,
+     True),
+    ("flat uplink bf16 theta", (7, 1000), False, BF16, F32, 0, 0, False),
+    ("flat uplink e4m3 ef", (7, 1000), False, F32, E4M3, 0, 0, False),
+    ("flat uplink theta offset 1", MLP_PACKED, False, F32, F32, 1, 0, False),
+    ("flat uplink noise offset 1", (7, 1000), False, F32, F32, 0, 1, False),
+    ("flat uplink C % 4 = 2", (7, 1002), False, F32, F32, 0, 0, False),
+    ("batched uplink C % 4 = 2", (3, 7, 1002), True, F32, F32, 0, 0, False),
+]
+
+
+def check_uplink_forms(device):
+    """Both forms of the uplink entries (`UPLINK_FORMS`), bitwise the
+    plain version, with NaN and +-inf in theta, a NaN and an inf scale,
+    zero rows (scale 0) and clipped codes; one launch a call, counted as
+    the form the table says."""
+    err = 0.0
+    for i, (label, shape, shared, tdt, edt, to, uo, f32x4) in enumerate(
+            UPLINK_FORMS):
+        name = ("uplink_roundtrip_batched" if len(shape) == 3
+                else "uplink_roundtrip_flat")
+        theta, start, ef, u, s = quant_inputs(shape, device, SEED + 120 + i,
+                                              shared=shared, special=True)
+        theta.reshape(-1)[::97] = float("inf")
+        theta.reshape(-1)[1::89] = -float("inf")
+        theta, ef, u = at_offset(theta.to(tdt), to), ef.to(edt), \
+            at_offset(u, uo)
+        outs = [torch.empty(theta.shape, dtype=tdt, device=device)] * 2
+        if tq.uplink_takes_f32x4(outs, theta, start, ef, u) != f32x4:
+            raise SystemExit(f"kernel check {label}: the wrapper would not "
+                             f"take the {'fp32' if f32x4 else 'runtime'} "
+                             "form")
+        before = (tq.LAUNCHES[name], tq.F32X4_LAUNCHES[name])
+        got = getattr(tq, name)(theta, start, ef, u, s, qmax=127)
+        sync()
+        if (tq.LAUNCHES[name], tq.F32X4_LAUNCHES[name]) != (
+                before[0] + 1, before[1] + int(f32x4)):
+            raise SystemExit(f"kernel check {label}: {name} did not launch "
+                             f"its {'fp32' if f32x4 else 'runtime'} form")
+        err = max(err, same_bits(label, name, got, kref.uplink_roundtrip_ref(
+            theta, start, ef, u, s, qmax=127)))
+        print(f"  {label:32s} {shape} "
+              f"{'fp32' if f32x4 else 'runtime-dtype'} form, bitwise equal")
+    return err
+
+
 def check_quant_kernels(device):
     """Each quantize entry point against its plain version on the card,
     bitwise: at the main path's shapes; at a ragged (3, 7, 1000) with
     fp32, bf16, e4m3 and e5m2 state, the shared operand shared and
     stacked; with NaN and inf; zero rows and clipped codes in every
-    case; the shared operand against its materialised stack; and both
-    forms of the quant entries on fp32 (`QUANT_FORMS`)."""
+    case; the shared operand against its materialised stack; both forms
+    of the quant entries on fp32 (`QUANT_FORMS`) and of the uplink
+    entries (`UPLINK_FORMS`)."""
     N, (R, C) = CLIENTS, MLP_PACKED
     cases = [  # (label, shape, store, shared, special, qmax)
         ("MLP-128 x 32 fp32 int8", (N, R, C), torch.float32, True, False,
@@ -576,6 +635,9 @@ def check_quant_kernels(device):
             label, name, got, kref.quant_roundtrip_ref(x, u, s, qmax=qmax)))
         print(f"  {label:30s} {shape} "
               f"{'fp32' if f32x4 else 'runtime-dtype'} form, bitwise equal")
+    up = check_uplink_forms(device)
+    for name in ("uplink_roundtrip_flat", "uplink_roundtrip_batched"):
+        err[name] = max(err[name], up)
     return err
 
 
@@ -744,8 +806,10 @@ def inv_sum(w) -> float:
 def check_agg_kernels(device):
     """The stale accumulate and the robust combine against their plain
     versions on the card, bitwise, at the MLP-128 packing (116, 1024):
-    the accumulate at K = 1, 16, 32 over fp32, bf16, e4m3 and e5m2 wires
-    with inv_norm 1 and 1/sum(w), and with NaN and inf; the combine at
+    the accumulate at K = 1, 2, 9, 16, 17, 32, 33 (the kernel's batches
+    of sixteen loads and their tails) over fp32, bf16, e4m3 and e5m2
+    wires with inv_norm 1 and 1/sum(w), with NaN and inf, and fp32 wires
+    at an element offset of 1 (the one-coordinate form); the combine at
     K = 15, 16, 32, 65 (past the register buckets) x trim 0, 1, 8 and
     (K-1)//2 x normalize, fp32 with ties, NaN and +-inf and scales !=
     1, at K=16 trim 1 over the narrow wire dtypes, and at K=16 trim 4,
@@ -761,19 +825,28 @@ def check_agg_kernels(device):
         err[name] = max(err[name], same_bits(label, name, got, plain()))
 
     n = 0
-    for K in (1, 16, 32):
-        for store in STORES:
+    for K in (1, 2, 9, 16, 17, 32, 33):
+        for store, offset in [(st, 0) for st in STORES] + [(F32, 1)]:
             for special in ((False, True) if store == torch.float32
                             else (False,)):
                 x, w, _ = agg_inputs(K, device, SEED + 200 + n, store,
                                      special)
+                x = at_offset(x, offset)
                 n += 1
+                f32x4 = store == torch.float32 and offset == 0
+                if tstale.takes_f32x4(torch.empty(MLP_PACKED, device=device),
+                                      x) != f32x4:
+                    raise SystemExit(f"kernel check stale K={K}: the wrapper "
+                                     "would not take the expected form")
                 for inv in (1.0, inv_sum(w)):
                     held(f"stale K={K} {str(store)[6:]}", "stale_accum_flat",
                          lambda: tstale.stale_accum_flat(x, w, inv),
                          lambda: kref.stale_accum_ref(x, w, inv))
                 print(f"  stale_accum_flat K={K:2d} {str(store)[6:]:14s}"
-                      f"{' NaN/inf' if special else ''} bitwise equal")
+                      f"{' offset 1' if offset else ''}"
+                      f"{' NaN/inf' if special else ''} "
+                      f"{'fp32' if f32x4 else 'one-coordinate'} form, "
+                      "bitwise equal")
     cases = [(K, trim, torch.float32, "special") for K in (15, 16, 32, 65)
              for trim in sorted({0, 1, 8, (K - 1) // 2}) if 2 * trim < K]
     cases += [(16, 1, store, "special") for store in STORES[1:]]
@@ -1081,12 +1154,20 @@ def main_path(device):
          expect(sign_roundtrip_flat=S, topk_threshold_flat=S,
                 quant_roundtrip_flat=S + 1, sophia_update_flat=S * J)),
     ]
+    # launches of the uplink kernel's fp32 form: every one of them
+    f32x4_want = {"uplink-int8-ef": dict(uplink_roundtrip_batched=R),
+                  "bidir-int8-ef sequential": dict(uplink_roundtrip_flat=S)}
     for label, strategy, comm_kw, rounds, want in phases:
         fed = FedConfig(strategy=strategy, comm=CommConfig(**comm_kw),
                         **base)
         engine, state, losses, secs = drive(label, mlp, fed, data, rounds,
                                             device, want)
         record(label, secs)
+        for name, n in f32x4_want.get(label, {}).items():
+            if tq.F32X4_LAUNCHES[name] != n:
+                raise SystemExit(f"{label}: {tq.F32X4_LAUNCHES[name]} of "
+                                 f"{n} {name} launches took the fp32 form")
+            print(f"{label}: all {n} {name} launches took the fp32 form")
         if rounds > 1 and not losses[-1] < losses[0]:
             raise SystemExit(f"{label}: fed_sophia local loss did not "
                              f"fall: {losses}")
@@ -1801,15 +1882,44 @@ def sweep_quant_grid(device):
         tq.F32X4_THREADS = keep
 
 
+def sweep_uplink_grid(device):
+    """Device ms of the uplink round-trip's fp32 form at the main path's
+    shapes for each block size (a thread per float4 group), the flat
+    entry walking the 32 client slices with per-client starts as in
+    `time_kernels`, the batched entry on the whole stack with the shared
+    start.  Sets nothing: the wrapper's block size is chosen from these
+    numbers by hand."""
+    N, (R, C) = CLIENTS, MLP_PACKED
+    th, sv, ef, u, s = quant_inputs((N, R, C), device, SEED + 98, qmax=127)
+    st = th.flip(0).contiguous()
+    keep = tq.UPLINK_F32X4_THREADS
+    try:
+        for threads in (64, 128, 256, 512):
+            tq.UPLINK_F32X4_THREADS = threads
+            flat = time_ms(lambda i: tq.uplink_roundtrip_flat(
+                th[i % N], st[i % N], ef[i % N], u[i % N], s[i % N],
+                qmax=127))
+            batched = time_ms(lambda i: tq.uplink_roundtrip_batched(
+                th, sv, ef, u, s, qmax=127))
+            grids = [-(-(n * C // 4) // threads) for n in (R, N * R)]
+            print(f"uplink fp32 form, {threads} threads a block (grids "
+                  f"{grids[0]}, {grids[1]}): flat {flat} ms, batched "
+                  f"{batched} ms")
+    finally:
+        tq.UPLINK_F32X4_THREADS = keep
+
+
 def time_kernels(device):
     """Every kernel and its plain version at the main path's shapes,
     fp32.  A flat entry walks the 32 client slices of a stack in turn,
     so each launch finds its buffers outside the 50 MB L2, as the
     sequential strategy does; the batched entries run on the whole stack
     (32 clients; 16 for the downlink of the bidir path, where half the
-    clients take part)."""
+    clients take part), and the 16-client ones also walk copies past the
+    L2 (`time_past_l2`)."""
     sweep_sophia_grid(device)
     sweep_quant_grid(device)
+    sweep_uplink_grid(device)
     N, R, C = (CLIENTS,) + MLP_PACKED
     ins = sophia_inputs((N, R, C), device, SEED + 99)
     lr = torch.tensor(LR)
@@ -1882,8 +1992,50 @@ def time_kernels(device):
         QUANT_OPS["broadcast"])
     del th, sv, ef, u, s, st
     out.update(time_biased(device))
+    time_past_l2(device)
     out.update(time_slice4(device))
     return out
+
+
+def copies_past_l2(tensors, l2_bytes=50 * 2 ** 20):
+    """Copies of ``tensors``, enough sets to exceed the 50 MB L2
+    together, so that calls that walk them in turn read from device
+    memory."""
+    one = sum(t.numel() * t.element_size() for t in tensors)
+    return [[t.clone() for t in tensors] for _ in range(l2_bytes // one + 2)]
+
+
+def time_past_l2(device):
+    """Rows 5, 9, 11 and 13 at 16 clients, each call on the next of a
+    set of copies that exceeds the L2 (a 16-client stack, 7.6 to 23 MB a
+    call, stays in the 50 MB L2 when one stack is re-read): device-memory
+    readings, under labels of their own (``..., HBM``)."""
+    N, R, C = (CLIENTS // 2,) + MLP_PACKED
+    q = 127
+    th, sv, ef, u, s = quant_inputs((N, R, C), device, SEED + 96, qmax=q)
+    sets = copies_past_l2([th, u, s])
+    n = len(sets)
+    time_pair("quant_roundtrip_batched (hessian, S=16, HBM)",
+              lambda i: tq.quant_roundtrip_batched(*sets[i % n], qmax=7),
+              lambda i: kref.quant_roundtrip_ref(*sets[i % n], qmax=7),
+              [th, u, s], [th], QUANT_OPS["quant"])
+    sets = copies_past_l2([sv, th, ef, u, s])
+    n = len(sets)
+    time_pair("broadcast_roundtrip_batched (S=16, HBM)",
+              lambda i: tq.broadcast_roundtrip_batched(*sets[i % n], qmax=q),
+              lambda i: kref.broadcast_roundtrip_ref(*sets[i % n], qmax=q),
+              [sv, th, ef, u, s], [th, th], QUANT_OPS["broadcast"])
+    del sets, th, sv, ef, u, s
+    x, v = biased_inputs((N, R, C), device, SEED + 95)
+    sets = copies_past_l2([x, v])
+    n = len(sets)
+    for name, ops_ in (("sign_roundtrip", BIASED_OPS["sign"]),
+                       ("topk_threshold", BIASED_OPS["topk"])):
+        kern = getattr(tq, f"{name}_batched")
+        plain = getattr(kref, f"{name}_ref")
+        time_pair(f"{name}_batched (S=16, HBM)",
+                  lambda i: kern(*sets[i % n]), lambda i: plain(*sets[i % n]),
+                  [x, v], [x], ops_)
 
 
 def timing_stacks(K, device, seed, l2_bytes=50 * 2 ** 20):
@@ -1899,21 +2051,60 @@ def timing_stacks(K, device, seed, l2_bytes=50 * 2 ** 20):
     return xs, w, sc
 
 
-def time_slice4(device):
-    """Rows 3, 14 and 15 and their plain versions at the main path's
-    shapes, fp32: the stale accumulate at K=16 (semisync's buffer; the
-    row's headline) and K=1 (async), beside ``torch.tensordot(w, wires,
-    dims=1) * inv_norm``, the one library call of the same function (not
-    bitwise: cuBLAS's GEMV sums in its own order); the robust combine at
-    K=32 trim 8 (the trimmed mean of the direct phase; the headline),
-    K=32 trim 15 (the median), K=16 trim 4 (the comm round's trimmed
-    mean at S=16) and K=16 trim 0 with clip scales (norm-clip), beside
-    ``torch.sort(wires, dim=0)``, the library's sort along K (the kernel
-    sorts a register copy per coordinate instead; no library call
-    computes the combine); the pytree step on the MLP-128 trees."""
+def sweep_stale_grid(device):
+    """Device ms of the stale accumulate's fp32 form at the main path's
+    K=16 and K=1 for each block size (a thread per float4 group), each
+    call on the next of a set of stacks past the L2 as in
+    `time_slice4`.  Sets nothing: the wrapper's block size is chosen from
+    these numbers by hand."""
+    keep = tstale.THREADS
+    try:
+        for K in (16, 1):
+            xs, w, _ = timing_stacks(K, device, SEED + 500 + K)
+            inv = torch.tensor([inv_sum(w)], device=device)
+            n = len(xs)
+            for threads in (64, 128, 256):
+                tstale.THREADS = threads
+                t = time_ms(lambda i: tstale.stale_accum_flat(xs[i % n], w,
+                                                              inv))
+                grid = -(-(MLP_PACKED[0] * MLP_PACKED[1] // 4) // threads)
+                print(f"stale_accum fp32 form, K={K}, {threads} threads a "
+                      f"block (grid {grid}): {t} ms")
+            del xs
+    finally:
+        tstale.THREADS = keep
+
+
+def time_stale_wires(device):
+    """The stale accumulate at K=16 over bf16, e4m3 and e5m2 wires (its
+    one-coordinate form), each call on the next of a set of stacks past
+    the L2; calls only what every version of the package has, so
+    `tools/ab_kernel_times.py --harness` can time an older checkout's
+    kernel with it."""
+    agg_out = [torch.empty(MLP_PACKED, device=device)]
+    xs, w, _ = timing_stacks(16, device, SEED + 516)
+    inv = torch.tensor([inv_sum(w)], device=device)
+    for store in STORES[1:]:
+        one = xs[0].numel() * torch.finfo(store).bits // 8
+        n = 50 * 2 ** 20 // one + 2
+        ws = [xs[k % len(xs)].to(store) for k in range(n)]
+        time_pair(f"stale_accum_flat (K=16, {str(store)[6:]} wires)",
+                  lambda i: tstale.stale_accum_flat(ws[i % n], w, inv),
+                  lambda i: kref.stale_accum_ref(ws[i % n], w, inv),
+                  [ws[0], w], agg_out, stale_ops(16), plain_chunk=10)
+        del ws
+
+
+def time_stale(device):
+    """Row 14 and its plain version at the main path's shapes, fp32: the
+    stale accumulate at K=16 (semisync's buffer; the row's headline) and
+    K=1 (async), beside ``torch.tensordot(w, wires, dims=1) *
+    inv_norm``, the one library call of the same function (not bitwise:
+    cuBLAS's GEMV sums in its own order); then over narrow wires
+    (`time_stale_wires`).  Calls only what every version of the package
+    has (`tools/ab_kernel_times.py --harness`)."""
     out = {}
-    R, C = MLP_PACKED
-    agg_out = [torch.empty((R, C), device=device)]
+    agg_out = [torch.empty(MLP_PACKED, device=device)]
     for K in (16, 1):
         xs, w, _ = timing_stacks(K, device, SEED + 500 + K)
         # a one-element device tensor: the plain version would otherwise
@@ -1930,6 +2121,24 @@ def time_slice4(device):
               f"dims=1) * inv_norm {t['library_ms']} ms (not bitwise)")
         out.setdefault("stale_accum_flat", t)
         del xs
+    time_stale_wires(device)
+    return out
+
+
+def time_slice4(device):
+    """Rows 3, 14 and 15 and their plain versions at the main path's
+    shapes, fp32: the stale accumulate's grid sweep and `time_stale`;
+    the robust combine at K=32 trim 8 (the trimmed mean of the direct
+    phase; the headline), K=32 trim 15 (the median), K=16 trim 4 (the
+    comm round's trimmed mean at S=16) and K=16 trim 0 with clip scales
+    (norm-clip), beside ``torch.sort(wires, dim=0)``, the library's sort
+    along K (the kernel sorts a register copy per coordinate instead; no
+    library call computes the combine); the pytree step on the MLP-128
+    trees."""
+    sweep_stale_grid(device)
+    out = time_stale(device)
+    R, C = MLP_PACKED
+    agg_out = [torch.empty((R, C), device=device)]
     for K, trim, clip in ((32, 8, False), (32, 15, False), (16, 4, False),
                           (16, 0, True)):
         xs, w, sc = timing_stacks(K, device, SEED + 600 + K + trim)

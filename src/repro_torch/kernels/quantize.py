@@ -15,11 +15,12 @@ the looped ``*_flat`` entry.
 
 For CUDA tensors each entry point validates its inputs and launches its
 kernel on PyTorch's current stream, or raises.  The quant entries take
-their kernel's fp32 form where `quant_takes_f32x4` allows, else its
-runtime-dtype form.  For CPU tensors it runs the plain version from
-`ref`; that is the only case in which the plain version runs.
-``LAUNCHES`` counts kernel launches per entry point (CPU calls count
-nothing).
+their kernel's fp32 form where `quant_takes_f32x4` allows, the uplink
+entries theirs where `uplink_takes_f32x4` allows, else the runtime-dtype
+form.  For CPU tensors it runs the plain version from `ref`; that is the
+only case in which the plain version runs.  ``LAUNCHES`` counts kernel
+launches per entry point, ``F32X4_LAUNCHES`` those of them that took the
+fp32 form (CPU calls count nothing).
 """
 from __future__ import annotations
 
@@ -43,6 +44,11 @@ LAUNCHES: Dict[str, int] = {
     "broadcast_roundtrip_flat": 0, "broadcast_roundtrip_batched": 0,
     "sign_roundtrip_flat": 0, "sign_roundtrip_batched": 0,
     "topk_threshold_flat": 0, "topk_threshold_batched": 0}
+#: of those, the launches that took the fp32 form, per entry point that
+#: has one
+F32X4_LAUNCHES: Dict[str, int] = {
+    "quant_roundtrip_flat": 0, "quant_roundtrip_batched": 0,
+    "uplink_roundtrip_flat": 0, "uplink_roundtrip_batched": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -52,6 +58,8 @@ _ARGTYPES = {
     "quant_roundtrip_f32x4_launch": [_P] * 4 + [_I64, _I, _F, _I, _I, _P],
     "uplink_roundtrip_launch": [_P] * 7 + [_I] * 3
                                + [_I64, _I, _I64, _F, _I, _P],
+    "uplink_roundtrip_f32x4_launch": [_P] * 7
+                                     + [_I64, _I, _I64, _F, _I, _I, _P],
     "broadcast_roundtrip_launch": [_P] * 7 + [_I] * 3
                                   + [_I64, _I, _I64, _F, _I, _P],
     "sign_roundtrip_launch": [_P] * 3 + [_I, _I64, _I64, _I, _P],
@@ -66,10 +74,17 @@ CHUNK = 256
 #: of each other flat and 1.8% batched, 256 the fastest flat
 F32X4_THREADS = 256
 
+#: threads a block of the uplink kernel's fp32 form, a thread per float4
+#: group.  From the card's times in `chip_smoke.py: sweep_uplink_grid`
+#: (H100, 700 W): 64 the fastest flat and batched, by 2.5-3.1% flat and
+#: 1.6-2.2% batched over 128 to 512
+UPLINK_F32X4_THREADS = 64
+
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32X4_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _kernel_fn(launcher: str):
@@ -136,11 +151,13 @@ def _geometry(x: torch.Tensor) -> Tuple[int, int, int, int]:
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _check(name: str, err: int) -> None:
+def _check(name: str, err: int, f32x4: bool = False) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[name] += 1
+    if f32x4:
+        F32X4_LAUNCHES[name] += 1
 
 
 def quant_takes_f32x4(out, x, noise) -> bool:
@@ -150,6 +167,23 @@ def quant_takes_f32x4(out, x, noise) -> bool:
     return (x.dtype == torch.float32 and out.dtype == torch.float32
             and x.shape[-1] % 4 == 0
             and all(t.data_ptr() % 16 == 0 for t in (out, x, noise)))
+
+
+def uplink_takes_f32x4(outs, theta, start, ef, noise) -> bool:
+    """Whether an uplink launch takes the kernel's fp32 form: theta,
+    start, ef and both outputs fp32, those five and ``noise`` 16-byte
+    aligned, and rows of a multiple of 4 columns (``start`` may be the
+    one ``(R, C)`` model of a stack)."""
+    f32 = (*outs, theta, start, ef)
+    return (all(t.dtype == torch.float32 for t in f32)
+            and theta.shape[-1] % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in f32 + (noise,)))
+
+
+def _blocks(n: int, threads: int) -> int:
+    """Blocks of a launch with a thread per float4 group of ``n``
+    elements."""
+    return max(1, -(-(n // 4) // threads))
 
 
 def _quant(name, ndim, x, noise, scale, qmax):
@@ -162,8 +196,8 @@ def _quant(name, ndim, x, noise, scale, qmax):
         _check(name, _kernel_fn("quant_roundtrip_f32x4_launch")(
             out.data_ptr(), x.data_ptr(), noise.data_ptr(),
             scale.data_ptr(), rows, cols, float(qmax),
-            max(1, -(-(x.numel() // 4) // F32X4_THREADS)), F32X4_THREADS,
-            stream))
+            _blocks(x.numel(), F32X4_THREADS), F32X4_THREADS, stream),
+            f32x4=True)
         return out
     _check(name, _kernel_fn("quant_roundtrip_launch")(
         out.data_ptr(), x.data_ptr(), noise.data_ptr(), scale.data_ptr(),
@@ -189,6 +223,15 @@ def _fused(name, launcher, ref_fn, ndim, theta, other, ef, noise, scale,
             torch.empty(lead.shape, dtype=theta.dtype, device=lead.device))
     rows, cols, blocks, stream = _geometry(lead)
     shared_rows = shared.numel() // cols
+    if shared_label == "start" and uplink_takes_f32x4(outs, theta, other,
+                                                      ef, noise):
+        _check(name, _kernel_fn("uplink_roundtrip_f32x4_launch")(
+            outs[0].data_ptr(), outs[1].data_ptr(), theta.data_ptr(),
+            other.data_ptr(), ef.data_ptr(), noise.data_ptr(),
+            scale.data_ptr(), rows, cols, shared_rows, float(qmax),
+            _blocks(lead.numel(), UPLINK_F32X4_THREADS),
+            UPLINK_F32X4_THREADS, stream), f32x4=True)
+        return outs
     _check(name, _kernel_fn(launcher)(
         outs[0].data_ptr(), outs[1].data_ptr(), theta.data_ptr(),
         other.data_ptr(), ef.data_ptr(), noise.data_ptr(), scale.data_ptr(),

@@ -3,7 +3,8 @@ wrapper around the CUDA kernel ``csrc/stale_accum.cu`` (the port of the
 JAX package's Pallas ``kernels/stale_accum.py``).
 
 For CUDA tensors `stale_accum_flat` validates its inputs and launches
-the kernel on PyTorch's current stream, or raises.  For CPU tensors it
+the kernel on PyTorch's current stream, or raises: its fp32 form where
+`takes_f32x4` allows, else its one-coordinate form.  For CPU tensors it
 runs the plain version `ref.stale_accum_ref`; that is the only case in
 which the plain version runs.  ``LAUNCHES`` counts kernel launches (CPU
 calls count nothing).
@@ -25,6 +26,11 @@ LAUNCHES: Dict[str, int] = {"stale_accum_flat": 0}
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
 
+#: threads a block (32 to 256), a thread per output item.  From the
+#: card's times in `chip_smoke.py: sweep_stale_grid` (H100, 700 W): 64 the
+#: fastest at K=16 (by 1-4% over 128 and 256) and at K=1 (by 3-4%)
+THREADS = 64
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -37,8 +43,14 @@ def _kernel_fn():
     if fn.argtypes is None:
         fn.argtypes = [_P] * 4 + [_F, _I, _I, _I64, _I, _I, _P]
         fn.restype = ctypes.c_int
-        lib.stale_accum_threads.restype = ctypes.c_int
-    return fn, int(lib.stale_accum_threads())
+    return fn
+
+
+def takes_f32x4(out, wires) -> bool:
+    """Whether a launch takes the kernel's fp32 form: fp32 wires, both
+    16-byte aligned, and a multiple of 4 coordinates a wire."""
+    return (wires.dtype == torch.float32 and out.numel() % 4 == 0
+            and wires.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
 
 
 def vector_of(values, device, name: str, label: str,
@@ -104,17 +116,13 @@ def stale_accum_flat(wires, weights, inv_norm):
         return stale_accum_ref(wires, w, inv_norm)
     out = torch.empty(wires.shape[1:], dtype=torch.float32,
                       device=wires.device)
-    fn, threads = _kernel_fn()
-    n = out.numel()
-    vec4 = (wires.dtype == torch.float32 and n % 4 == 0
-            and wires.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    items = -(-(n // 4 if vec4 else n) // threads)
-    err = fn(out.data_ptr(), wires.data_ptr(), w.data_ptr(),
-             None if s_ptr is None else s_ptr.data_ptr(),
-             0.0 if s_ptr is not None else float(inv_norm),
-             DTYPE_CODES[wires.dtype], K, n, int(vec4),
-             build.grid_blocks(items, wires.device),
-             torch.cuda.current_stream(wires.device).cuda_stream)
+    err = _kernel_fn()(
+        out.data_ptr(), wires.data_ptr(), w.data_ptr(),
+        None if s_ptr is None else s_ptr.data_ptr(),
+        0.0 if s_ptr is not None else float(inv_norm),
+        DTYPE_CODES[wires.dtype], K, out.numel(),
+        int(takes_f32x4(out, wires)), THREADS,
+        torch.cuda.current_stream(wires.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

@@ -376,14 +376,20 @@ def _same_fp32(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("store", list(AGG_STORES))
-@pytest.mark.parametrize("K", [1, 16, 33])
-@pytest.mark.parametrize("shape", [(7, 1000), (7, 999)],
-                         ids=["vec4", "scalar"])
-def test_stale_accum_kernel_bitwise_vs_plain(card, store, K, shape):
+@pytest.mark.parametrize("K", [1, 2, 3, 7, 8, 9, 16, 17, 32, 33])
+@pytest.mark.parametrize("shape,offset", [((7, 1000), 0), ((7, 1000), 1),
+                                          ((7, 999), 0)],
+                         ids=["vec4", "offset", "scalar"])
+def test_stale_accum_kernel_bitwise_vs_plain(card, store, K, shape, offset):
     """Bitwise, with inv_norm 1, 1/sum(w) by value and as a device
-    tensor; fp32 stacks of a multiple of 4 coordinates take the 16-byte
-    path."""
+    tensor, over the kernel's batches of sixteen loads and their tails;
+    aligned fp32 stacks of a multiple of 4 coordinates take the
+    float4 form, the rest (offset views, narrow wires) the
+    one-coordinate form."""
     x, w, _ = _stack(card, K, shape, store, seed=K)
+    x = _at_offset(x, offset)
+    assert tstale.takes_f32x4(torch.empty(shape, device=card), x) == (
+        store == "fp32" and shape == (7, 1000) and offset == 0)
     inv = float(np.float32(1.0) / np.float32(w.sum().item()))
     tstale.reset_launches()
     for s in (1.0, inv, torch.tensor([inv], device=card)):
@@ -702,3 +708,107 @@ def test_quant_fp32_form_every_swept_block_size(card, threads, monkeypatch):
                  else tq.quant_roundtrip_flat)
         got = entry(x, u, s, qmax=qmax)
         _bitwise((got,), (ref.quant_roundtrip_ref(x, u, s, qmax=qmax),))
+
+
+# -------------------------------------------- the uplink round-trip's forms
+F32, BF16, E4M3 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+#: name: (shape, shared start, theta dtype, ef dtype, theta offset, noise
+#: offset, fp32 form); a 3D shape takes the batched entry.  Also drives
+#: tests/test_torch_quantize.py's CPU test of `uplink_takes_f32x4`.
+UPLINK_FORM_CASES = {
+    "fp32 aligned flat": ((116, 1024), False, F32, F32, 0, 0, True),
+    "batched shared start": ((3, 7, 1000), True, F32, F32, 0, 0, True),
+    "batched stacked start": ((3, 7, 1000), False, F32, F32, 0, 0, True),
+    "bf16 theta": ((7, 1000), False, BF16, F32, 0, 0, False),
+    "e4m3 ef": ((7, 1000), False, F32, E4M3, 0, 0, False),
+    "theta offset 1": ((7, 1000), False, F32, F32, 1, 0, False),
+    "noise offset 1": ((7, 1000), False, F32, F32, 0, 1, False),
+    "cols % 4 = 2": ((7, 1002), False, F32, F32, 0, 0, False),
+}
+
+
+def uplink_form_inputs(device, name, seed, special=False):
+    """theta, start, ef, U[0,1) noise and the row scales of the corrected
+    delta for `UPLINK_FORM_CASES` entry ``name``: every 7th row zero
+    (scale 0), rows 1 mod 5 with quartered scales (codes clip at
+    +-qmax); ``special`` puts NaN and +-inf into theta and a NaN and an
+    inf scale.  theta and noise at their entry's element offsets."""
+    shape, shared, tdt, edt, to, uo, _ = UPLINK_FORM_CASES[name]
+    rs = np.random.default_rng(seed)
+    theta = rs.standard_normal(shape).astype(np.float32)
+    start = rs.standard_normal(shape[-2:] if shared else shape).astype(
+        np.float32)
+    ef = (0.01 * rs.standard_normal(shape)).astype(np.float32)
+    for a in (theta, start, ef):
+        a[..., ::7, :] = 0.0
+    d = (theta - start) + ef
+    s = (np.abs(d).max(-1, keepdims=True) / 127).astype(np.float32)
+    s[..., 1::5, :] /= 4
+    if special:
+        flat = theta.reshape(-1)
+        flat[rs.integers(0, flat.size, 16)] = np.nan
+        flat[rs.integers(0, flat.size, 8)] = np.inf
+        flat[rs.integers(0, flat.size, 8)] = -np.inf
+        s.reshape(-1)[2:4] = np.nan, np.inf
+    u = rs.uniform(size=shape).astype(np.float32)
+    theta, start, ef, u, s = (torch.tensor(a, device=device)
+                              for a in (theta, start, ef, u, s))
+    return (_at_offset(theta.to(tdt), to), start, ef.to(edt),
+            _at_offset(u, uo), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(UPLINK_FORM_CASES))
+def test_uplink_forms_bitwise_vs_plain(card, name):
+    """The uplink entries: the fp32 form where theta, start, ef and both
+    outputs are fp32, those and the noise 16-byte aligned and C % 4 ==
+    0, else the runtime-dtype form; one launch per call, counted as its
+    form; bitwise the plain version (zero-scale rows, clipped codes, NaN
+    and +-inf inputs, NaN and inf scales included)."""
+    shape, *_, f32x4 = UPLINK_FORM_CASES[name]
+    theta, start, ef, u, s = uplink_form_inputs(card, name, 23, special=True)
+    outs = [torch.empty(theta.shape, dtype=theta.dtype, device=card)] * 2
+    assert tq.uplink_takes_f32x4(outs, theta, start, ef, u) == f32x4
+    entry = ("uplink_roundtrip_batched" if len(shape) == 3
+             else "uplink_roundtrip_flat")
+    tq.reset_launches()
+    got = getattr(tq, entry)(theta, start, ef, u, s, qmax=127)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES == dict.fromkeys(tq.LAUNCHES, 0) | {entry: 1}
+    assert tq.F32X4_LAUNCHES == (dict.fromkeys(tq.F32X4_LAUNCHES, 0)
+                                 | {entry: int(f32x4)})
+    _bitwise(got, ref.uplink_roundtrip_ref(theta, start, ef, u, s,
+                                           qmax=127))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [64, 128, 256, 512])
+def test_uplink_fp32_form_every_swept_block_size(card, threads, monkeypatch):
+    """Each block size `chip_smoke.py: sweep_uplink_grid` tries gives the
+    same bits, flat and batched, shared and stacked start."""
+    monkeypatch.setattr(tq, "UPLINK_F32X4_THREADS", threads)
+    for name in ("fp32 aligned flat", "batched shared start",
+                 "batched stacked start"):
+        theta, start, ef, u, s = uplink_form_inputs(card, name, 29,
+                                                    special=True)
+        entry = (tq.uplink_roundtrip_batched if theta.ndim == 3
+                 else tq.uplink_roundtrip_flat)
+        tq.reset_launches()
+        got = entry(theta, start, ef, u, s, qmax=7)
+        assert sum(tq.F32X4_LAUNCHES.values()) == 1
+        _bitwise(got, ref.uplink_roundtrip_ref(theta, start, ef, u, s,
+                                               qmax=7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [64, 128, 256])
+def test_stale_accum_every_swept_block_size(card, threads, monkeypatch):
+    """Each block size `chip_smoke.py: sweep_stale_grid` tries gives the
+    same bits, in both forms, in one, two and three batches."""
+    monkeypatch.setattr(tstale, "THREADS", threads)
+    for K, store in ((1, "fp32"), (16, "fp32"), (33, "fp32"), (16, "bf16"),
+                     (33, "e4m3")):
+        x, w, _ = _stack(card, K, (116, 1024), store, seed=K)
+        inv = float(np.float32(1.0) / np.float32(w.sum().item()))
+        got = tstale.stale_accum_flat(x, w, inv)
+        _same_fp32(got, ref.stale_accum_ref(x, w, inv))

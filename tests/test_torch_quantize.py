@@ -12,7 +12,7 @@
   body), one ulp of the storage format otherwise.
 * Batched equals looped flat, bitwise; all-zero rows give +0 and a zero
   residual; the clip at +-qmax; CPU calls launch nothing; bad inputs
-  raise.
+  raise; the uplink wrapper's choice of its kernel's fp32 form.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +24,7 @@ from repro.kernels import quantize as jq
 from repro.kernels import ref as jref
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref as tref
+from test_torch_kernels_cuda import UPLINK_FORM_CASES, uplink_form_inputs
 
 N, R, C = 3, 20, 100
 QMAX = 7
@@ -489,3 +490,34 @@ def test_e4m3_overflow_stores_bitwise_vs_jax_eager_refs(fn):
     if fn != "topk":    # a threshold only keeps or zeroes stored values
         assert np.isnan(first).sum() >= 4 * 8
     assert (first == 448).any() and (first == -448).any()
+
+
+@pytest.mark.parametrize("name", list(UPLINK_FORM_CASES))
+def test_uplink_takes_f32x4_cases(name):
+    """`uplink_takes_f32x4` over the table the card's form test runs
+    (`tests/test_torch_kernels_cuda.py`): the fp32 form only for fp32
+    theta, start, ef and outputs, all six pointers 16-byte aligned
+    (``data_ptr() % 16``, the same rule on either device) and C % 4 ==
+    0.  The same inputs through the wrapper's CPU route are bitwise the
+    JAX package's eager ref, and launch nothing."""
+    shape, shared, *_, f32x4 = UPLINK_FORM_CASES[name]
+    theta, start, ef, u, s = uplink_form_inputs("cpu", name, 31)
+    outs = [torch.empty(theta.shape, dtype=theta.dtype)] * 2
+    assert tq.uplink_takes_f32x4(outs, theta, start, ef, u) == f32x4
+    entry = (tq.uplink_roundtrip_batched if len(shape) == 3
+             else tq.uplink_roundtrip_flat)
+    tq.reset_launches()
+    got = entry(theta, start, ef, u, s, qmax=127)
+    assert sum(tq.LAUNCHES.values()) + sum(tq.F32X4_LAUNCHES.values()) == 0
+    j = [jnp.asarray(np.asarray(t.float()).astype(np.float32)).astype(
+        DTYPES[k][1]) for t, k in ((theta, _name(theta)), (start, "fp32"),
+                                   (ef, _name(ef)))]
+    jstart = j[1][None] if shared and len(shape) == 3 else j[1]
+    _bitwise(got, jref.uplink_roundtrip_ref(j[0], jstart, j[2],
+                                            jnp.asarray(u.numpy()),
+                                            jnp.asarray(s.numpy()),
+                                            qmax=127))
+
+
+def _name(t):
+    return next(k for k, (tdt, _) in DTYPES.items() if tdt == t.dtype)
