@@ -19,12 +19,13 @@ a Dirichlet(0.1) partition, random wires into a trimmed mean on the
 comm path, a scale attack under norm-clip in semisync), and the pytree
 Sophia step (one launch of the kernel a step; one profiled call must
 show that kernel alone); checks small rounds and scheduler runs against
-the same on the CPU, sweeps the grids of the Sophia, quantize, uplink
-and stale-accumulate kernels' fp32 forms, and times each kernel with CUDA
-events (the 16-client batched ones also on copies past the L2).  Every
-path runs with the launch counts set to 0 just before it and read just
-after; the bidir-int8-ef sequential path must also have taken the uplink
-kernel's fp32 form at every launch.
+the same on the CPU, sweeps the grids of the Sophia, quantize, uplink,
+broadcast, sign / threshold and stale-accumulate kernels' fp32 forms,
+and times each kernel with CUDA events (the 16-client batched ones also
+on copies past the L2).  Every path runs with the launch counts set to 0
+just before it and read just after; the EF uplink, bidir and biased comm
+paths must also have taken the fp32 form of the uplink, broadcast, sign
+and threshold kernels at every launch of those.
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
@@ -525,6 +526,25 @@ UPLINK_FORMS = [
 ]
 
 
+def launch_form(label, name, f32x4, takes, call):
+    """``call()`` on the card: the wrapper's form rule (``takes``, its
+    answer for these inputs) and the launch must both pick entry
+    ``name``'s fp32 form if ``f32x4`` and its runtime-dtype form if not;
+    one launch.  Returns the call's result."""
+    form = "fp32" if f32x4 else "runtime"
+    if takes != f32x4:
+        raise SystemExit(f"kernel check {label}: the wrapper would not take "
+                         f"the {form} form")
+    before = (tq.LAUNCHES[name], tq.F32X4_LAUNCHES[name])
+    got = call()
+    sync()
+    if (tq.LAUNCHES[name], tq.F32X4_LAUNCHES[name]) != (
+            before[0] + 1, before[1] + int(f32x4)):
+        raise SystemExit(f"kernel check {label}: {name} did not launch its "
+                         f"{form} form")
+    return got
+
+
 def check_uplink_forms(device):
     """Both forms of the uplink entries (`UPLINK_FORMS`), bitwise the
     plain version, with NaN and +-inf in theta, a NaN and an inf scale,
@@ -542,20 +562,78 @@ def check_uplink_forms(device):
         theta, ef, u = at_offset(theta.to(tdt), to), ef.to(edt), \
             at_offset(u, uo)
         outs = [torch.empty(theta.shape, dtype=tdt, device=device)] * 2
-        if tq.uplink_takes_f32x4(outs, theta, start, ef, u) != f32x4:
-            raise SystemExit(f"kernel check {label}: the wrapper would not "
-                             f"take the {'fp32' if f32x4 else 'runtime'} "
-                             "form")
-        before = (tq.LAUNCHES[name], tq.F32X4_LAUNCHES[name])
-        got = getattr(tq, name)(theta, start, ef, u, s, qmax=127)
-        sync()
-        if (tq.LAUNCHES[name], tq.F32X4_LAUNCHES[name]) != (
-                before[0] + 1, before[1] + int(f32x4)):
-            raise SystemExit(f"kernel check {label}: {name} did not launch "
-                             f"its {'fp32' if f32x4 else 'runtime'} form")
+        got = launch_form(label, name, f32x4,
+                          tq.uplink_takes_f32x4(outs, theta, start, ef, u),
+                          lambda: getattr(tq, name)(theta, start, ef, u, s,
+                                                    qmax=127))
         err = max(err, same_bits(label, name, got, kref.uplink_roundtrip_ref(
             theta, start, ef, u, s, qmax=127)))
         print(f"  {label:32s} {shape} "
+              f"{'fp32' if f32x4 else 'runtime-dtype'} form, bitwise equal")
+    return err
+
+
+#: the broadcast entries' two forms: (label, shape, shared theta, theta
+#: (server model) dtype, ref (replica) dtype, ef dtype, operand at storage
+#: offset 1 or None, fp32 form); a 3D shape goes to the batched entry
+#: (the flat entry's theta is the one (R, C) model)
+BROADCAST_FORMS = [
+    ("flat broadcast MLP-128", MLP_PACKED, True, F32, F32, F32, None, True),
+    ("flat broadcast ragged", (7, 1000), True, F32, F32, F32, None, True),
+    ("batched broadcast x16 shared theta", (CLIENTS // 2,) + MLP_PACKED,
+     True, F32, F32, F32, None, True),
+    ("batched broadcast stacked theta", (3, 7, 1000), False, F32, F32, F32,
+     None, True),
+    ("flat broadcast bf16 theta", (7, 1000), True, BF16, F32, F32, None,
+     False),
+    ("flat broadcast bf16 ref", (7, 1000), True, F32, BF16, F32, None,
+     False),
+    ("flat broadcast e4m3 ef", (7, 1000), True, F32, F32, E4M3, None, False),
+    ("flat broadcast theta offset 1", (7, 1000), True, F32, F32, F32,
+     "theta", False),
+    ("flat broadcast ref offset 1", MLP_PACKED, True, F32, F32, F32, "ref",
+     False),
+    ("flat broadcast noise offset 1", (7, 1000), True, F32, F32, F32,
+     "noise", False),
+    ("flat broadcast C % 4 = 2", (7, 1002), True, F32, F32, F32, None,
+     False),
+    ("batched broadcast ef offset 1", (3, 7, 1000), True, F32, F32, F32,
+     "ef", False),
+    ("batched broadcast C % 4 = 3", (3, 7, 999), False, F32, F32, F32, None,
+     False),
+]
+
+
+def check_broadcast_forms(device):
+    """Both forms of the broadcast entries (`BROADCAST_FORMS`), bitwise
+    the plain version, with NaN and +-inf in the replicas and +-inf in
+    the server model, a NaN and an inf scale, zero rows (scale 0) and
+    clipped codes; one launch a call, counted as the form the table
+    says."""
+    err = 0.0
+    for i, (label, shape, shared, tdt, rdt, edt, off, f32x4) in enumerate(
+            BROADCAST_FORMS):
+        name = ("broadcast_roundtrip_batched" if len(shape) == 3
+                else "broadcast_roundtrip_flat")
+        ref, theta, ef, u, s = quant_inputs(shape, device, SEED + 150 + i,
+                                            shared=shared or len(shape) == 2,
+                                            special=True)
+        theta.reshape(-1)[::97] = float("inf")
+        theta.reshape(-1)[1::89] = -float("inf")
+        ins = {"theta": kref.store_as(theta, tdt),
+               "ref": kref.store_as(ref, rdt), "ef": kref.store_as(ef, edt),
+               "noise": u}
+        theta, ref, ef, u = (at_offset(t, int(k == off))
+                             for k, t in ins.items())
+        outs = [torch.empty(shape, dtype=tdt, device=device)] * 2
+        got = launch_form(label, name, f32x4,
+                          tq.broadcast_takes_f32x4(outs, theta, ref, ef, u),
+                          lambda: getattr(tq, name)(theta, ref, ef, u, s,
+                                                    qmax=127))
+        err = max(err, same_bits(label, name, got,
+                                 kref.broadcast_roundtrip_ref(
+                                     theta, ref, ef, u, s, qmax=127)))
+        print(f"  {label:36s} {shape} "
               f"{'fp32' if f32x4 else 'runtime-dtype'} form, bitwise equal")
     return err
 
@@ -566,8 +644,8 @@ def check_quant_kernels(device):
     fp32, bf16, e4m3 and e5m2 state, the shared operand shared and
     stacked; with NaN and inf; zero rows and clipped codes in every
     case; the shared operand against its materialised stack; both forms
-    of the quant entries on fp32 (`QUANT_FORMS`) and of the uplink
-    entries (`UPLINK_FORMS`)."""
+    of the quant entries on fp32 (`QUANT_FORMS`), of the uplink entries
+    (`UPLINK_FORMS`) and of the broadcast entries (`BROADCAST_FORMS`)."""
     N, (R, C) = CLIENTS, MLP_PACKED
     cases = [  # (label, shape, store, shared, special, qmax)
         ("MLP-128 x 32 fp32 int8", (N, R, C), torch.float32, True, False,
@@ -638,6 +716,9 @@ def check_quant_kernels(device):
     up = check_uplink_forms(device)
     for name in ("uplink_roundtrip_flat", "uplink_roundtrip_batched"):
         err[name] = max(err[name], up)
+    down = check_broadcast_forms(device)
+    for name in ("broadcast_roundtrip_flat", "broadcast_roundtrip_batched"):
+        err[name] = max(err[name], down)
     return err
 
 
@@ -688,8 +769,9 @@ def check_biased_kernels(device):
     versions on the card, bitwise: at a 32- and a 16-client MLP-128 stack
     (the flat entries on one client's (116, 1024) slice) and at a ragged
     (3, 7, 1000) over fp32, bf16, e4m3 and e5m2, with and without NaN,
-    +-0 and +-inf; ties at every client's threshold and one client with
-    scalar 0 in each case."""
+    +-0 and +-inf, and a ragged (3, 7, 999) at fp32; ties at every
+    client's threshold and one client with scalar 0 in each case; then
+    both forms (`BIASED_FORMS`)."""
     N, (R, C) = CLIENTS, MLP_PACKED
     cases = [("MLP-128 x 32 fp32", (N, R, C), torch.float32, False),
              ("MLP-128 x 16 fp32 NaN/inf", (N // 2, R, C), torch.float32,
@@ -699,6 +781,8 @@ def check_biased_kernels(device):
             cases.append((f"ragged {str(store)[6:]}"
                           + (" NaN/0/inf" if special else ""),
                           (3, 7, 1000), store, special))
+    cases.append(("ragged fp32 per client % 4 = 1", (3, 7, 999),
+                  torch.float32, True))
     err = {}
     for i, (label, shape, store, special) in enumerate(cases):
         x, v = biased_inputs(shape, device, SEED + 120 + i, store, special)
@@ -713,6 +797,56 @@ def check_biased_kernels(device):
                             same_bits(label, name, got, plain()))
         print(f"  {label:30s} {shape} all four biased entry points "
               "bitwise equal")
+    forms = check_biased_forms(device)
+    for name in err:
+        err[name] = max(err[name], forms)
+    return err
+
+
+#: the sign / threshold entries' two forms: (label, stack shape, x dtype,
+#: x storage offset, fp32 form); "flat" labels call the flat entries on
+#: client 1 of the stack, "batched" labels the batched ones on the whole
+BIASED_FORMS = [
+    ("flat biased MLP-128", (2,) + MLP_PACKED, F32, 0, True),
+    ("flat biased C % 4 = 3, per client % 4 = 0", (2, 4, 999), F32, 0,
+     True),
+    ("flat biased offset 4", (2, 7, 1000), F32, 4, True),
+    ("flat biased offset 1", (2,) + MLP_PACKED, F32, 1, False),
+    ("flat biased per client % 4 = 1", (2, 7, 999), F32, 0, False),
+    ("flat biased bf16", (2, 7, 1000), BF16, 0, False),
+    ("batched biased x32", (CLIENTS,) + MLP_PACKED, F32, 0, True),
+    ("batched biased x16", (CLIENTS // 2,) + MLP_PACKED, F32, 0, True),
+    ("batched biased C % 4 = 3, per client % 4 = 0", (3, 4, 999), F32, 0,
+     True),
+    ("batched biased offset 1", (3, 7, 1000), F32, 1, False),
+    ("batched biased ragged", (3, 7, 999), F32, 0, False),
+    ("batched biased e4m3", (3, 7, 1000), E4M3, 0, False),
+]
+
+
+def check_biased_forms(device):
+    """Both forms of the sign and threshold entries (`BIASED_FORMS`),
+    bitwise the plain versions, with NaN, +-0, +-inf and ties at each
+    client's scalar (one client's scalar 0); one launch a call, counted as
+    the form the table says.  Returns the largest |difference| over
+    finite values."""
+    err = 0.0
+    for i, (label, shape, store, off, f32x4) in enumerate(BIASED_FORMS):
+        x, v = biased_inputs(shape, device, SEED + 170 + i, store,
+                             special=True)
+        kind = label.split()[0]
+        if kind == "flat":
+            x, v = x[1], v[1]
+        x = at_offset(x, off)
+        takes = tq.biased_takes_f32x4(torch.empty_like(x), x)
+        for fn, plain in (("sign_roundtrip", kref.sign_roundtrip_ref),
+                          ("topk_threshold", kref.topk_threshold_ref)):
+            name = f"{fn}_{kind}"
+            got = launch_form(label, name, f32x4, takes,
+                              lambda: getattr(tq, name)(x, v))
+            err = max(err, same_bits(label, name, got, plain(x, v)))
+        print(f"  {label:44s} {tuple(x.shape)} "
+              f"{'fp32' if f32x4 else 'runtime-dtype'} form, bitwise equal")
     return err
 
 
@@ -1154,9 +1288,19 @@ def main_path(device):
          expect(sign_roundtrip_flat=S, topk_threshold_flat=S,
                 quant_roundtrip_flat=S + 1, sophia_update_flat=S * J)),
     ]
-    # launches of the uplink kernel's fp32 form: every one of them
-    f32x4_want = {"uplink-int8-ef": dict(uplink_roundtrip_batched=R),
-                  "bidir-int8-ef sequential": dict(uplink_roundtrip_flat=S)}
+    # launches of the uplink, broadcast, sign and threshold kernels' fp32
+    # forms: every one of them
+    f32x4_want = {
+        "uplink-int8-ef": dict(uplink_roundtrip_batched=R),
+        "bidir-int8": dict(broadcast_roundtrip_batched=R),
+        "bidir-int8-ef sequential": dict(uplink_roundtrip_flat=S,
+                                         broadcast_roundtrip_flat=S),
+        "uplink-topk": dict(topk_threshold_batched=R),
+        "uplink-signsgd-majority": dict(sign_roundtrip_batched=R),
+        "bidir-sign-topk-int4": dict(sign_roundtrip_batched=R,
+                                     topk_threshold_batched=R),
+        "bidir-sign-topk-int4 sequential": dict(sign_roundtrip_flat=S,
+                                                topk_threshold_flat=S)}
     for label, strategy, comm_kw, rounds, want in phases:
         fed = FedConfig(strategy=strategy, comm=CommConfig(**comm_kw),
                         **base)
@@ -1909,6 +2053,61 @@ def sweep_uplink_grid(device):
         tq.UPLINK_F32X4_THREADS = keep
 
 
+def sweep_broadcast_grid(device):
+    """Device ms of the broadcast round-trip's fp32 form at the main
+    path's shapes for each block size (a thread per float4 group), the
+    flat entry walking the 32 client replicas with the one server model as
+    in `time_kernels`, the batched entry on the 16-client replica stack
+    with the shared server model (the bidir phase's S=16).  Sets nothing:
+    the wrapper's block size is chosen from these numbers by hand."""
+    N, (R, C) = CLIENTS, MLP_PACKED
+    h = N // 2
+    th, sv, ef, u, s = quant_inputs((N, R, C), device, SEED + 98, qmax=127)
+    st = th.flip(0).contiguous()
+    keep = tq.BROADCAST_F32X4_THREADS
+    try:
+        for threads in (64, 128, 256, 512):
+            tq.BROADCAST_F32X4_THREADS = threads
+            flat = time_ms(lambda i: tq.broadcast_roundtrip_flat(
+                sv, st[i % N], ef[i % N], u[i % N], s[i % N], qmax=127))
+            batched = time_ms(lambda i: tq.broadcast_roundtrip_batched(
+                sv, st[:h], ef[:h], u[:h], s[:h], qmax=127))
+            grids = [-(-(n * C // 4) // threads) for n in (R, h * R)]
+            print(f"broadcast fp32 form, {threads} threads a block (grids "
+                  f"{grids[0]}, {grids[1]}): flat {flat} ms, batched "
+                  f"(S={h}) {batched} ms")
+    finally:
+        tq.BROADCAST_F32X4_THREADS = keep
+
+
+def sweep_biased_grid(device):
+    """Device ms of the sign and threshold kernels' fp32 form at the
+    main path's shapes for each block size (a thread per float4 group):
+    the flat entries walking the 32 client slices as in `time_kernels`,
+    the batched entries on the 32- and the 16-client stack.  Sets
+    nothing: the wrapper's block size is chosen from these numbers by
+    hand."""
+    N, (R, C) = CLIENTS, MLP_PACKED
+    h = N // 2
+    x, v = biased_inputs((N, R, C), device, SEED + 97)
+    keep = tq.BIASED_F32X4_THREADS
+    try:
+        for threads in (64, 128, 256, 512):
+            tq.BIASED_F32X4_THREADS = threads
+            grids = [-(-(n * R * C // 4) // threads) for n in (1, N, h)]
+            for fn in ("sign_roundtrip", "topk_threshold"):
+                flat, batched = (getattr(tq, f"{fn}_{k}")
+                                 for k in ("flat", "batched"))
+                t1 = time_ms(lambda i: flat(x[i % N], v[i % N]))
+                tn = time_ms(lambda i: batched(x, v))
+                th_ = time_ms(lambda i: batched(x[:h], v[:h]))
+                print(f"{fn} fp32 form, {threads} threads a block (grids "
+                      f"{grids[0]}, {grids[1]}, {grids[2]}): flat {t1} ms, "
+                      f"batched x{N} {tn} ms, x{h} {th_} ms")
+    finally:
+        tq.BIASED_F32X4_THREADS = keep
+
+
 def time_kernels(device):
     """Every kernel and its plain version at the main path's shapes,
     fp32.  A flat entry walks the 32 client slices of a stack in turn,
@@ -1920,6 +2119,8 @@ def time_kernels(device):
     sweep_sophia_grid(device)
     sweep_quant_grid(device)
     sweep_uplink_grid(device)
+    sweep_broadcast_grid(device)
+    sweep_biased_grid(device)
     N, R, C = (CLIENTS,) + MLP_PACKED
     ins = sophia_inputs((N, R, C), device, SEED + 99)
     lr = torch.tensor(LR)

@@ -10,10 +10,12 @@
 //   uplink_roundtrip_f32x4_kernel its fp32 form      (both entries)
 //   broadcast_roundtrip_kernel <- _broadcast_kernel (broadcast_roundtrip_flat,
 //                                                    broadcast_roundtrip_batched)
+//   broadcast_roundtrip_f32x4_kernel its fp32 form   (both entries)
 //   per_client_kernel<SignOp>   <- _sign_kernel, _sign_kernel_batched
 //     (sign_roundtrip_flat, sign_roundtrip_batched)
 //   per_client_kernel<ThreshOp> <- _thresh_kernel, _thresh_kernel_batched
 //     (topk_threshold_flat, topk_threshold_batched)
+//   per_client_f32x4_kernel<SignOp|ThreshOp> their fp32 form (all four)
 //
 // The stochastic quantizers (int8/int4), per coordinate, with s the row's
 // scale and u the streamed U[0,1) noise:
@@ -63,6 +65,17 @@
 // by one.  Its block size is chosen from chip_smoke.py's
 // sweep_uplink_grid.
 //
+// The broadcast round-trip has that form too
+// (broadcast_roundtrip_f32x4_kernel), taken per launch when theta, ref, ef
+// and both outputs are fp32, those five and u are 16-byte aligned and
+// C % 4 == 0.  theta keeps the default caching in both entries: the flat
+// entry's theta is the one server model that each client's launch of a
+// sequential round reads again (475 KB at MLP-128, L2-resident), the
+// batched entry's is read by every client of the stack; ref, ef and u,
+// read once, take the evict-first hint.  The stores are plain: the new
+// replica and residual are read again in the next round.  Its block size
+// is chosen from chip_smoke.py's sweep_broadcast_grid.
+//
 // The biased compressors, one fp32 scalar v per client (the flat entry is
 // one client), computed outside the kernel as the JAX package does:
 //
@@ -75,7 +88,16 @@
 // and one store).  One grid-stride elementwise pass over chunks of
 // kThreads elements that never straddle two clients: a chunk finds its
 // client with one division, and every thread of it reads the same scalar
-// (one broadcast load).
+// (one broadcast load).  Their fp32 form (per_client_f32x4_kernel),
+// taken per launch when x and out are fp32 and 16-byte aligned and each
+// client holds a multiple of 4 elements: a thread per float4 group (a
+// group never straddles two clients), no loop, no dtype switch, the load
+// of x with the evict-first hint and the client's scalar by one load
+// that the warp's threads share; the same functors per lane.  What held
+// the chunked form back: one 4-byte load a thread per trip, each behind
+// a runtime dtype switch, and the chunk's client by a 64-bit division on
+// the scalar's dependency chain.  Its block size is chosen from
+// chip_smoke.py's sweep_biased_grid.
 //
 // Bits: built with -fmad=false and IEEE division, so each kernel is
 // bitwise the op-by-op PyTorch version (kernels/ref.py) on the card.  The
@@ -91,7 +113,7 @@ namespace {
 using namespace repro_torch;
 
 constexpr int kThreads = 256;
-// the most threads a block of the fp32 quant form may take
+// the most threads a block of an fp32 form may take
 constexpr int kMaxF32x4Threads = 512;
 
 __device__ __forceinline__ float quant(float x, float s, float safe,
@@ -226,6 +248,42 @@ __global__ void __launch_bounds__(kThreads) broadcast_roundtrip_kernel(
   }
 }
 
+// `groups` float4 groups of ref, `groups_per_row` of them a row (C / 4);
+// `theta` holds theta_groups groups (R * C / 4 for the one shared server
+// model, `groups` when stacked); a thread per group.
+__global__ void __launch_bounds__(kMaxF32x4Threads)
+    broadcast_roundtrip_f32x4_kernel(float* __restrict__ model_out,
+                                     float* __restrict__ resid_out,
+                                     const float* __restrict__ theta,
+                                     const float* __restrict__ ref,
+                                     const float* __restrict__ ef,
+                                     const float* __restrict__ u,
+                                     const float* __restrict__ scale,
+                                     int64_t groups, int64_t groups_per_row,
+                                     int64_t theta_groups, float qmax) {
+  const int64_t j =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= groups) return;
+  const float4 tv = __ldg(reinterpret_cast<const float4*>(theta) +
+                          (theta_groups == groups ? j : j % theta_groups));
+  const float4 rv = __ldcs(reinterpret_cast<const float4*>(ref) + j);
+  const float4 ev = __ldcs(reinterpret_cast<const float4*>(ef) + j);
+  const float4 uv = __ldcs(reinterpret_cast<const float4*>(u) + j);
+  const float s = __ldg(scale + j / groups_per_row);
+  const float safe = s > 0.0f ? s : 1.0f;
+  const float4 d = make_float4((tv.x - rv.x) + ev.x, (tv.y - rv.y) + ev.y,
+                               (tv.z - rv.z) + ev.z, (tv.w - rv.w) + ev.w);
+  float4 xh;
+  xh.x = quant(d.x, s, safe, uv.x, qmax);
+  xh.y = quant(d.y, s, safe, uv.y, qmax);
+  xh.z = quant(d.z, s, safe, uv.z, qmax);
+  xh.w = quant(d.w, s, safe, uv.w, qmax);
+  reinterpret_cast<float4*>(model_out)[j] =
+      make_float4(rv.x + xh.x, rv.y + xh.y, rv.z + xh.z, rv.w + xh.w);
+  reinterpret_cast<float4*>(resid_out)[j] =
+      make_float4(d.x - xh.x, d.y - xh.y, d.z - xh.z, d.w - xh.w);
+}
+
 struct SignOp {
   __device__ __forceinline__ float operator()(float x, float v) const {
     const float sg = (x == 0.0f || x != x) ? x : copysignf(1.0f, x);
@@ -257,6 +315,23 @@ __global__ void __launch_bounds__(kThreads) per_client_kernel(
   }
 }
 
+// `groups` float4 groups of x, `groups_per_client` of them a client
+// (per_client / 4); group j uses scalar[j / groups_per_client].  A thread
+// per group.
+template <class Op>
+__global__ void __launch_bounds__(kMaxF32x4Threads) per_client_f32x4_kernel(
+    float* __restrict__ out, const float* __restrict__ x,
+    const float* __restrict__ scalar, int64_t groups,
+    int64_t groups_per_client, Op op) {
+  const int64_t j =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= groups) return;
+  const float4 xv = __ldcs(reinterpret_cast<const float4*>(x) + j);
+  const float v = __ldg(scalar + j / groups_per_client);
+  reinterpret_cast<float4*>(out)[j] =
+      make_float4(op(xv.x, v), op(xv.y, v), op(xv.z, v), op(xv.w, v));
+}
+
 template <class Op>
 int per_client_launch(void* out, const void* x, const float* scalar,
                       int c_x, int64_t clients, int64_t per_client,
@@ -266,6 +341,20 @@ int per_client_launch(void* out, const void* x, const float* scalar,
   per_client_kernel<Op><<<blocks, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       out, x, scalar, c_x, per_client, cpc, clients * cpc, Op());
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Op>
+int per_client_f32x4_launch(float* out, const float* x, const float* scalar,
+                            int64_t clients, int64_t per_client, int blocks,
+                            int threads, void* stream) {
+  if (clients <= 0 || per_client <= 0) return static_cast<int>(cudaSuccess);
+  if (per_client % 4 != 0 || threads < 1 || threads > kMaxF32x4Threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  per_client_f32x4_kernel<Op><<<blocks, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      out, x, scalar, clients * (per_client / 4), per_client / 4, Op());
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -350,6 +439,26 @@ extern "C" int broadcast_roundtrip_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fp32 form: theta, ref, ef and both outputs fp32, those and u
+// 16-byte aligned, cols % 4 == 0; `threads` (at most 512) a block,
+// `blocks` enough for a thread per float4 group.
+extern "C" int broadcast_roundtrip_f32x4_launch(
+    float* model_out, float* resid_out, const float* theta,
+    const float* ref, const float* ef, const float* u, const float* scale,
+    int64_t rows, int cols, int64_t theta_rows, float qmax, int blocks,
+    int threads, void* stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaSuccess);
+  if (cols % 4 != 0 || threads < 1 || threads > kMaxF32x4Threads ||
+      theta_rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  broadcast_roundtrip_f32x4_kernel<<<blocks, threads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      model_out, resid_out, theta, ref, ef, u, scale, rows * (cols / 4),
+      cols / 4, theta_rows * (cols / 4), qmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The biased compressors: `clients` runs of `per_client` elements (1 run
 // for a flat entry), scalar[n] the scale or threshold of run n.  The grid
 // strides over clients * ceil(per_client / 256) chunks.
@@ -367,4 +476,25 @@ extern "C" int topk_threshold_launch(void* out, const void* x,
                                      int blocks, void* stream) {
   return per_client_launch<ThreshOp>(out, x, thr, c_x, clients, per_client,
                                      blocks, stream);
+}
+
+// The fp32 form of both: x and out fp32 and 16-byte aligned,
+// per_client % 4 == 0; `threads` (at most 512) a block, `blocks` enough
+// for a thread per float4 group.
+extern "C" int sign_roundtrip_f32x4_launch(float* out, const float* x,
+                                           const float* scale,
+                                           int64_t clients,
+                                           int64_t per_client, int blocks,
+                                           int threads, void* stream) {
+  return per_client_f32x4_launch<SignOp>(out, x, scale, clients, per_client,
+                                         blocks, threads, stream);
+}
+
+extern "C" int topk_threshold_f32x4_launch(float* out, const float* x,
+                                           const float* thr,
+                                           int64_t clients,
+                                           int64_t per_client, int blocks,
+                                           int threads, void* stream) {
+  return per_client_f32x4_launch<ThreshOp>(out, x, thr, clients, per_client,
+                                           blocks, threads, stream);
 }

@@ -16,7 +16,9 @@ the looped ``*_flat`` entry.
 For CUDA tensors each entry point validates its inputs and launches its
 kernel on PyTorch's current stream, or raises.  The quant entries take
 their kernel's fp32 form where `quant_takes_f32x4` allows, the uplink
-entries theirs where `uplink_takes_f32x4` allows, else the runtime-dtype
+entries theirs where `uplink_takes_f32x4` allows, the broadcast entries
+theirs where `broadcast_takes_f32x4` allows, the sign and threshold
+entries theirs where `biased_takes_f32x4` allows, else the runtime-dtype
 form.  For CPU tensors it runs the plain version from `ref`; that is the
 only case in which the plain version runs.  ``LAUNCHES`` counts kernel
 launches per entry point, ``F32X4_LAUNCHES`` those of them that took the
@@ -48,7 +50,10 @@ LAUNCHES: Dict[str, int] = {
 #: has one
 F32X4_LAUNCHES: Dict[str, int] = {
     "quant_roundtrip_flat": 0, "quant_roundtrip_batched": 0,
-    "uplink_roundtrip_flat": 0, "uplink_roundtrip_batched": 0}
+    "uplink_roundtrip_flat": 0, "uplink_roundtrip_batched": 0,
+    "broadcast_roundtrip_flat": 0, "broadcast_roundtrip_batched": 0,
+    "sign_roundtrip_flat": 0, "sign_roundtrip_batched": 0,
+    "topk_threshold_flat": 0, "topk_threshold_batched": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -62,8 +67,12 @@ _ARGTYPES = {
                                      + [_I64, _I, _I64, _F, _I, _I, _P],
     "broadcast_roundtrip_launch": [_P] * 7 + [_I] * 3
                                   + [_I64, _I, _I64, _F, _I, _P],
+    "broadcast_roundtrip_f32x4_launch": [_P] * 7
+                                        + [_I64, _I, _I64, _F, _I, _I, _P],
     "sign_roundtrip_launch": [_P] * 3 + [_I, _I64, _I64, _I, _P],
     "topk_threshold_launch": [_P] * 3 + [_I, _I64, _I64, _I, _P],
+    "sign_roundtrip_f32x4_launch": [_P] * 3 + [_I64, _I64, _I, _I, _P],
+    "topk_threshold_f32x4_launch": [_P] * 3 + [_I64, _I64, _I, _I, _P],
 }
 #: elements per work item of the per-client kernels (one block's threads)
 CHUNK = 256
@@ -79,6 +88,21 @@ F32X4_THREADS = 256
 #: (H100, 700 W): 64 the fastest flat and batched, by 2.5-3.1% flat and
 #: 1.6-2.2% batched over 128 to 512
 UPLINK_F32X4_THREADS = 64
+
+#: threads a block of the broadcast kernel's fp32 form, a thread per
+#: float4 group.  From the card's times in `chip_smoke.py:
+#: sweep_broadcast_grid` (H100, 700 W), two calls: 64 the fastest flat by
+#: 2.6-3.7% in one, 1.2% behind 256 in the other; batched (S=16) 1.2-2.7%
+#: behind 512.  The flat entry launches 16 times a sequential round, the
+#: batched one once a parallel round
+BROADCAST_F32X4_THREADS = 64
+
+#: threads a block of the sign / threshold kernel's fp32 form, a thread
+#: per float4 group.  From the card's times in `chip_smoke.py:
+#: sweep_biased_grid` (H100, 700 W): 512 the fastest batched, by
+#: 0.2-3.7% over 128 and 256 and 25-51% over 64 (14,848 blocks at 32
+#: clients); flat, 64 to 512 within 4.6% of each other
+BIASED_F32X4_THREADS = 512
 
 
 def reset_launches() -> None:
@@ -180,6 +204,22 @@ def uplink_takes_f32x4(outs, theta, start, ef, noise) -> bool:
             and all(t.data_ptr() % 16 == 0 for t in f32 + (noise,)))
 
 
+def broadcast_takes_f32x4(outs, theta, ref, ef, noise) -> bool:
+    """Whether a broadcast launch takes the kernel's fp32 form: the
+    uplink's rule with ``ref`` in place of ``start`` (``theta`` may be
+    the one ``(R, C)`` server model of a stack)."""
+    return uplink_takes_f32x4(outs, theta, ref, ef, noise)
+
+
+def biased_takes_f32x4(out, x) -> bool:
+    """Whether a sign / threshold launch takes the kernel's fp32 form:
+    ``x`` and ``out`` fp32 and 16-byte aligned, and each client (the
+    last two axes) a multiple of 4 elements."""
+    return (x.dtype == torch.float32 and out.dtype == torch.float32
+            and x.shape[-2:].numel() % 4 == 0
+            and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+
+
 def _blocks(n: int, threads: int) -> int:
     """Blocks of a launch with a thread per float4 group of ``n``
     elements."""
@@ -223,14 +263,15 @@ def _fused(name, launcher, ref_fn, ndim, theta, other, ef, noise, scale,
             torch.empty(lead.shape, dtype=theta.dtype, device=lead.device))
     rows, cols, blocks, stream = _geometry(lead)
     shared_rows = shared.numel() // cols
-    if shared_label == "start" and uplink_takes_f32x4(outs, theta, other,
-                                                      ef, noise):
-        _check(name, _kernel_fn("uplink_roundtrip_f32x4_launch")(
+    takes, threads = ((uplink_takes_f32x4, UPLINK_F32X4_THREADS)
+                      if shared_label == "start" else
+                      (broadcast_takes_f32x4, BROADCAST_F32X4_THREADS))
+    if takes(outs, theta, other, ef, noise):
+        _check(name, _kernel_fn(launcher.replace("_launch", "_f32x4_launch"))(
             outs[0].data_ptr(), outs[1].data_ptr(), theta.data_ptr(),
             other.data_ptr(), ef.data_ptr(), noise.data_ptr(),
             scale.data_ptr(), rows, cols, shared_rows, float(qmax),
-            _blocks(lead.numel(), UPLINK_F32X4_THREADS),
-            UPLINK_F32X4_THREADS, stream), f32x4=True)
+            _blocks(lead.numel(), threads), threads, stream), f32x4=True)
         return outs
     _check(name, _kernel_fn(launcher)(
         outs[0].data_ptr(), outs[1].data_ptr(), theta.data_ptr(),
@@ -325,12 +366,18 @@ def _per_client(name, launcher, ref_fn, ndim, x, v, label):
         raise ValueError(f"{name}: unsupported device {x.device}")
     out = torch.empty_like(x)
     clients = x.shape[0] if ndim == 3 else 1
-    per_client = x.numel() // clients if clients else 0
+    per_client = x.shape[-2:].numel()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if biased_takes_f32x4(out, x):
+        _check(name, _kernel_fn(launcher.replace("_launch", "_f32x4_launch"))(
+            out.data_ptr(), x.data_ptr(), v.data_ptr(), clients, per_client,
+            _blocks(x.numel(), BIASED_F32X4_THREADS), BIASED_F32X4_THREADS,
+            stream), f32x4=True)
+        return out
     chunks = clients * -(-per_client // CHUNK)
     _check(name, _kernel_fn(launcher)(
         out.data_ptr(), x.data_ptr(), v.data_ptr(), DTYPE_CODES[x.dtype],
-        clients, per_client, build.grid_blocks(chunks, x.device),
-        torch.cuda.current_stream(x.device).cuda_stream))
+        clients, per_client, build.grid_blocks(chunks, x.device), stream))
     return out
 
 

@@ -812,3 +812,199 @@ def test_stale_accum_every_swept_block_size(card, threads, monkeypatch):
         inv = float(np.float32(1.0) / np.float32(w.sum().item()))
         got = tstale.stale_accum_flat(x, w, inv)
         _same_fp32(got, ref.stale_accum_ref(x, w, inv))
+
+
+# ----------------------------------------- the broadcast round-trip's forms
+#: name: (shape, shared theta, theta dtype, ref dtype, ef dtype, operand
+#: at storage offset 1 or None, fp32 form); a 3D shape takes the batched
+#: entry (the flat entry's theta is always the one (R, C) model).  Also
+#: drives tests/test_torch_quantize.py's CPU test of
+#: `broadcast_takes_f32x4`.
+BROADCAST_FORM_CASES = {
+    "fp32 aligned flat": ((116, 1024), True, F32, F32, F32, None, True),
+    "ragged flat": ((7, 1000), True, F32, F32, F32, None, True),
+    "batched shared theta": ((3, 7, 1000), True, F32, F32, F32, None, True),
+    "batched stacked theta": ((3, 7, 1000), False, F32, F32, F32, None,
+                              True),
+    "bf16 theta": ((7, 1000), True, BF16, F32, F32, None, False),
+    "bf16 ref": ((7, 1000), True, F32, BF16, F32, None, False),
+    "e4m3 ef": ((7, 1000), True, F32, F32, E4M3, None, False),
+    "theta offset 1": ((7, 1000), True, F32, F32, F32, "theta", False),
+    "ref offset 1": ((116, 1024), True, F32, F32, F32, "ref", False),
+    "noise offset 1": ((7, 1000), True, F32, F32, F32, "noise", False),
+    "cols % 4 = 2": ((7, 1002), True, F32, F32, F32, None, False),
+    "batched ef offset 1": ((3, 7, 1000), True, F32, F32, F32, "ef",
+                            False),
+    "batched cols % 4 = 3": ((3, 7, 999), False, F32, F32, F32, None,
+                             False),
+}
+
+
+def broadcast_form_inputs(device, name, seed, special=False):
+    """theta (the server model: ``(R, C)`` when shared), ref (the
+    replicas), ef, U[0,1) noise and the row scales of the corrected delta
+    for `BROADCAST_FORM_CASES` entry ``name``: every 7th row zero (scale
+    0), rows 1 mod 5 with quartered scales (codes clip at +-qmax), -0 in
+    theta and ref; ``special`` puts NaN and +-inf into theta and ref and
+    a NaN and an inf scale.  The entry's operand at storage offset 1."""
+    shape, shared, tdt, rdt, edt, off, _ = BROADCAST_FORM_CASES[name]
+    rs = np.random.default_rng(seed)
+    theta = rs.standard_normal(shape[-2:] if shared else shape).astype(
+        np.float32)
+    ref_ = rs.standard_normal(shape).astype(np.float32)
+    ef = (0.01 * rs.standard_normal(shape)).astype(np.float32)
+    for a in (theta, ref_, ef):
+        a[..., ::7, :] = 0.0
+    theta.reshape(-1)[rs.integers(0, theta.size, 8)] = -0.0
+    ref_.reshape(-1)[rs.integers(0, ref_.size, 8)] = -0.0
+    d = (theta - ref_) + ef
+    s = (np.abs(d).max(-1, keepdims=True) / 127).astype(np.float32)
+    s[..., 1::5, :] /= 4
+    if special:
+        for a in (theta, ref_):
+            flat = a.reshape(-1)
+            flat[rs.integers(0, flat.size, 8)] = np.nan
+            flat[rs.integers(0, flat.size, 4)] = np.inf
+            flat[rs.integers(0, flat.size, 4)] = -np.inf
+        s.reshape(-1)[2:4] = np.nan, np.inf
+    u = rs.uniform(size=shape).astype(np.float32)
+    ops_ = dict(zip(("theta", "ref", "ef", "noise"),
+                    (ref.store_as(torch.tensor(a, device=device), dt)
+                     for a, dt in ((theta, tdt), (ref_, rdt), (ef, edt),
+                                   (u, F32)))))
+    ops_ = {k: _at_offset(t, int(k == off)) for k, t in ops_.items()}
+    return (ops_["theta"], ops_["ref"], ops_["ef"], ops_["noise"],
+            torch.tensor(s, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BROADCAST_FORM_CASES))
+def test_broadcast_forms_bitwise_vs_plain(card, name):
+    """The broadcast entries: the fp32 form where theta, ref, ef and both
+    outputs are fp32, those and the noise 16-byte aligned and C % 4 ==
+    0, else the runtime-dtype form; one launch per call, counted as its
+    form; bitwise the plain version (zero-scale rows, clipped codes, -0,
+    NaN and +-inf inputs, NaN and inf scales included)."""
+    shape, *_, f32x4 = BROADCAST_FORM_CASES[name]
+    theta, ref_, ef, u, s = broadcast_form_inputs(card, name, 37,
+                                                  special=True)
+    outs = [torch.empty(shape, dtype=theta.dtype, device=card)] * 2
+    assert tq.broadcast_takes_f32x4(outs, theta, ref_, ef, u) == f32x4
+    entry = ("broadcast_roundtrip_batched" if len(shape) == 3
+             else "broadcast_roundtrip_flat")
+    tq.reset_launches()
+    got = getattr(tq, entry)(theta, ref_, ef, u, s, qmax=127)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES == dict.fromkeys(tq.LAUNCHES, 0) | {entry: 1}
+    assert tq.F32X4_LAUNCHES == (dict.fromkeys(tq.F32X4_LAUNCHES, 0)
+                                 | {entry: int(f32x4)})
+    _bitwise(got, ref.broadcast_roundtrip_ref(theta, ref_, ef, u, s,
+                                              qmax=127))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [64, 128, 256, 512])
+def test_broadcast_fp32_form_every_swept_block_size(card, threads,
+                                                    monkeypatch):
+    """Each block size `chip_smoke.py: sweep_broadcast_grid` tries gives
+    the same bits, flat and batched, shared and stacked theta."""
+    monkeypatch.setattr(tq, "BROADCAST_F32X4_THREADS", threads)
+    for name in ("fp32 aligned flat", "batched shared theta",
+                 "batched stacked theta"):
+        theta, ref_, ef, u, s = broadcast_form_inputs(card, name, 41,
+                                                      special=True)
+        entry = (tq.broadcast_roundtrip_batched if ref_.ndim == 3
+                 else tq.broadcast_roundtrip_flat)
+        tq.reset_launches()
+        got = entry(theta, ref_, ef, u, s, qmax=7)
+        assert sum(tq.F32X4_LAUNCHES.values()) == 1
+        _bitwise(got, ref.broadcast_roundtrip_ref(theta, ref_, ef, u, s,
+                                                  qmax=7))
+
+
+# ------------------------------------ the sign / threshold kernel's forms
+E5M2 = torch.float8_e5m2
+#: name: (shape, x dtype, x storage offset, fp32 form); a 3D shape takes
+#: the batched entries.  Also drives tests/test_torch_quantize.py's CPU
+#: test of `biased_takes_f32x4`.
+BIASED_FORM_CASES = {
+    "fp32 aligned flat": ((116, 1024), F32, 0, True),
+    "flat C % 4 = 3, per client % 4 = 0": ((4, 999), F32, 0, True),
+    "flat offset 4": ((7, 1000), F32, 4, True),
+    "flat offset 1": ((7, 1000), F32, 1, False),
+    "flat per client % 4 = 1": ((7, 999), F32, 0, False),
+    "flat bf16": ((7, 1000), BF16, 0, False),
+    "batched": ((3, 7, 1000), F32, 0, True),
+    "batched C % 4 = 3, per client % 4 = 0": ((3, 4, 999), F32, 0, True),
+    "batched offset 1": ((3, 7, 1000), F32, 1, False),
+    "batched ragged": ((3, 7, 999), F32, 0, False),
+    "batched e4m3": ((3, 7, 1000), E4M3, 0, False),
+    "batched e5m2": ((3, 7, 1000), E5M2, 0, False),
+}
+
+
+def biased_form_inputs(device, name, seed, special=False):
+    """x for `BIASED_FORM_CASES` entry ``name`` (at its storage offset)
+    and its fp32 per-client scalars (0-dim for a flat x): each client's
+    mean |x| rounded to x's dtype, 0 for the last client of a stack, with
+    8 ties at +-scalar per client; ``special`` puts NaN, +-0 and +-inf
+    into every client (stored by `ref.store_as`: e4m3 has no inf, so
+    +-inf becomes NaN on either device)."""
+    shape, dt, off, _ = BIASED_FORM_CASES[name]
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1, shape[-2] * shape[-1])     # a row per client
+    v = torch.tensor(np.abs(flat).mean(-1)).to(dt).float()
+    if len(shape) == 3:
+        v[-1] = 0.0
+    for n in range(flat.shape[0]):
+        pos = rs.choice(flat.shape[1], 14, replace=False)
+        flat[n, pos[:8]] = float(v[n]) * np.array([1, -1] * 4, np.float32)
+        if special:
+            flat[n, pos[8:]] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf]
+    xt = _at_offset(ref.store_as(torch.tensor(x, device=device), dt), off)
+    v = v.to(device)
+    return xt, (v if len(shape) == 3 else v[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BIASED_FORM_CASES))
+def test_biased_forms_bitwise_vs_plain(card, name):
+    """The sign and threshold entries: the fp32 form where x and out are
+    fp32 and 16-byte aligned and each client holds a multiple of 4
+    elements, else the runtime-dtype form; one launch per call, counted
+    as its form; bitwise the plain version (NaN, +-0, +-inf and ties at
+    the threshold included)."""
+    shape, _, _, f32x4 = BIASED_FORM_CASES[name]
+    x, v = biased_form_inputs(card, name, 43, special=True)
+    assert tq.biased_takes_f32x4(torch.empty_like(x), x) == f32x4
+    kind = "batched" if len(shape) == 3 else "flat"
+    for entry, plain in ((f"sign_roundtrip_{kind}", ref.sign_roundtrip_ref),
+                         (f"topk_threshold_{kind}",
+                          ref.topk_threshold_ref)):
+        tq.reset_launches()
+        got = getattr(tq, entry)(x, v)
+        torch.cuda.synchronize()
+        assert tq.LAUNCHES == dict.fromkeys(tq.LAUNCHES, 0) | {entry: 1}
+        assert tq.F32X4_LAUNCHES == (dict.fromkeys(tq.F32X4_LAUNCHES, 0)
+                                     | {entry: int(f32x4)})
+        _bitwise((got,), (plain(x, v),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [64, 128, 256, 512])
+def test_biased_fp32_form_every_swept_block_size(card, threads,
+                                                 monkeypatch):
+    """Each block size `chip_smoke.py: sweep_biased_grid` tries gives the
+    same bits, flat and batched, sign and threshold."""
+    monkeypatch.setattr(tq, "BIASED_F32X4_THREADS", threads)
+    for name in ("fp32 aligned flat", "batched",
+                 "batched C % 4 = 3, per client % 4 = 0"):
+        x, v = biased_form_inputs(card, name, 47, special=True)
+        kind = "batched" if x.ndim == 3 else "flat"
+        tq.reset_launches()
+        for fn, plain in (("sign_roundtrip", ref.sign_roundtrip_ref),
+                          ("topk_threshold", ref.topk_threshold_ref)):
+            got = getattr(tq, f"{fn}_{kind}")(x, v)
+            _bitwise((got,), (plain(x, v),))
+        assert sum(tq.F32X4_LAUNCHES.values()) == 2

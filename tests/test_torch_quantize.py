@@ -12,7 +12,8 @@
   body), one ulp of the storage format otherwise.
 * Batched equals looped flat, bitwise; all-zero rows give +0 and a zero
   residual; the clip at +-qmax; CPU calls launch nothing; bad inputs
-  raise; the uplink wrapper's choice of its kernel's fp32 form.
+  raise; the uplink, broadcast and sign / threshold wrappers' choice of
+  their kernels' fp32 forms.
 """
 import jax
 import jax.numpy as jnp
@@ -24,7 +25,12 @@ from repro.kernels import quantize as jq
 from repro.kernels import ref as jref
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref as tref
-from test_torch_kernels_cuda import UPLINK_FORM_CASES, uplink_form_inputs
+from test_torch_kernels_cuda import (BIASED_FORM_CASES,
+                                     BROADCAST_FORM_CASES,
+                                     UPLINK_FORM_CASES,
+                                     biased_form_inputs,
+                                     broadcast_form_inputs,
+                                     uplink_form_inputs)
 
 N, R, C = 3, 20, 100
 QMAX = 7
@@ -521,3 +527,64 @@ def test_uplink_takes_f32x4_cases(name):
 
 def _name(t):
     return next(k for k, (tdt, _) in DTYPES.items() if tdt == t.dtype)
+
+
+def _jnp_of(t):
+    """A CPU tensor's values as a jnp array of its dtype (cast from fp32
+    by JAX: the values are representable, so the cast is exact)."""
+    return jnp.asarray(t.float().numpy()).astype(DTYPES[_name(t)][1])
+
+
+@pytest.mark.parametrize("name", list(BROADCAST_FORM_CASES))
+def test_broadcast_takes_f32x4_cases(name):
+    """`broadcast_takes_f32x4` over the table the card's form test runs
+    (`tests/test_torch_kernels_cuda.py`): the fp32 form only for fp32
+    theta, ref, ef and outputs, all six pointers 16-byte aligned and
+    C % 4 == 0.  The same inputs, with -0, NaN, +-inf and a NaN and an
+    inf scale, through the wrapper's CPU route are bitwise the JAX
+    package's eager ref (a NaN need only be NaN in both), and launch
+    nothing."""
+    shape, shared, *_, f32x4 = BROADCAST_FORM_CASES[name]
+    theta, ref_, ef, u, s = broadcast_form_inputs("cpu", name, 53,
+                                                  special=True)
+    outs = [torch.empty(shape, dtype=theta.dtype)] * 2
+    assert tq.broadcast_takes_f32x4(outs, theta, ref_, ef, u) == f32x4
+    entry = (tq.broadcast_roundtrip_batched if len(shape) == 3
+             else tq.broadcast_roundtrip_flat)
+    tq.reset_launches()
+    got = entry(theta, ref_, ef, u, s, qmax=127)
+    assert sum(tq.LAUNCHES.values()) + sum(tq.F32X4_LAUNCHES.values()) == 0
+    jtheta = _jnp_of(theta)
+    want = jref.broadcast_roundtrip_ref(
+        jtheta[None] if shared and len(shape) == 3 else jtheta,
+        _jnp_of(ref_), _jnp_of(ef), jnp.asarray(u.numpy()),
+        jnp.asarray(s.numpy()), qmax=127)
+    for g, w in zip(got, want):
+        _bitwise_nan(g, w)
+    assert all(bool(torch.isnan(g.float()).any()) for g in got)
+
+
+@pytest.mark.parametrize("name", list(BIASED_FORM_CASES))
+def test_biased_takes_f32x4_cases(name):
+    """`biased_takes_f32x4` over the table the card's form test runs: the
+    fp32 form only for fp32 x and out, both 16-byte aligned, and a
+    multiple of 4 elements a client.  The same inputs, with NaN, +-0,
+    +-inf and ties at each client's threshold (one client's scalar 0 in
+    a stack), through the sign and threshold wrappers' CPU routes are
+    bitwise the JAX package's eager refs (a NaN need only be NaN in
+    both), and launch nothing."""
+    shape, _, _, f32x4 = BIASED_FORM_CASES[name]
+    x, v = biased_form_inputs("cpu", name, 59, special=True)
+    assert tq.biased_takes_f32x4(torch.empty_like(x), x) == f32x4
+    kind = "batched" if len(shape) == 3 else "flat"
+    jx, jv = _jnp_of(x), jnp.asarray(v.numpy())
+    tq.reset_launches()
+    for fn in ("sign_roundtrip", "topk_threshold"):
+        got = getattr(tq, f"{fn}_{kind}")(x, v)
+        _bitwise_nan(got, getattr(jref, f"{fn}_ref")(jx, jv))
+    assert sum(tq.LAUNCHES.values()) + sum(tq.F32X4_LAUNCHES.values()) == 0
+    xf = x.float()
+    assert bool(torch.isnan(xf).any() and ((xf == 0)
+                                           & torch.signbit(xf)).any())
+    assert bool(torch.isinf(xf).any()) == (x.dtype != torch.float8_e4m3fn)
+
