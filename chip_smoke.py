@@ -18,8 +18,14 @@ adversarial fleet (sign-flip with trimmed mean and coordinate median on
 a Dirichlet(0.1) partition, random wires into a trimmed mean on the
 comm path, a scale attack under norm-clip in semisync), and the pytree
 Sophia step (one launch of the kernel a step; one profiled call must
-show that kernel alone); checks small rounds and scheduler runs against
-the same on the CPU, sweeps the grids of the Sophia, quantize, uplink,
+show that kernel alone), and the engine's other settings (FedAdam and
+FedYogi; DONE, parallel and sequential; micro-batched gradients; bf16
+and fp8 resident state on the direct, int8 and bidir paths, with the
+JAX package's resident-byte gates and each launch's kernel form
+asserted; the health probes, whose states must equal their unprobed
+twins' bit for bit; FedAdam behind the semisync apply on bf16 state);
+checks small rounds, scheduler runs and each new setting against the
+same on the CPU, sweeps the grids of the Sophia, quantize, uplink,
 broadcast, sign / threshold and stale-accumulate kernels' fp32 forms,
 and times each kernel with CUDA events (the 16-client batched ones also
 on copies past the L2).  Every path runs with the launch counts set to 0
@@ -29,8 +35,10 @@ and threshold kernels at every launch of those.
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
-The second-to-last line of standard output is the ``{"kernels": [...]}``
-record; the last line is ``{"ok": true, "device": {...}}``.
+The narrow forms of rows 2, 5 and 9 that the resident dtype policy runs are
+timed beside the fifteen and printed as a ``{"narrow_kernels": [...]}``
+line.  The second-to-last line of standard output is the ``{"kernels":
+[...]}`` record; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -54,7 +62,7 @@ from repro_torch.comm import compressors as tcomp  # noqa: E402
 from repro_torch.comm import flat as tflat  # noqa: E402
 from repro_torch.configs import cnn_mnist, mlp_mnist  # noqa: E402
 from repro_torch.configs.base import (COMM_STREAMS, CommConfig,  # noqa: E402
-                                      FedConfig, RobustConfig,
+                                      FedConfig, ObsConfig, RobustConfig,
                                       SchedConfig)
 from repro_torch.core import sophia as tsophia  # noqa: E402
 from repro_torch.core.fed import FedEngine  # noqa: E402
@@ -71,6 +79,7 @@ from repro_torch.kernels import stale_accum as tstale  # noqa: E402
 from repro_torch.kernels.ref import sophia_update_ref  # noqa: E402
 from repro_torch.models.small import (CNNTask, MLPTask,  # noqa: E402
                                       gumbel_noise)
+from repro_torch.obs.probes import PROBE_METRICS  # noqa: E402
 from repro_torch.robust.aggregators import resolve, trim_count  # noqa: E402
 from repro_torch.sched.scheduler import VirtualScheduler  # noqa: E402
 
@@ -1147,13 +1156,16 @@ def make_data(device):
     return x, y, train_idx
 
 
-def run_rounds(task, fed, data, rounds, device):
-    """``rounds`` rounds through `FedEngine.round`; returns the final
-    state, the per-round losses and host seconds per round (each timed
-    around work that ends in a device synchronise)."""
+def run_rounds(task, fed, data, rounds, device, packed=False):
+    """``rounds`` rounds through `FedEngine.round` (from packed-resident
+    state with ``packed``); returns the final state, the per-round
+    losses and host seconds per round (each timed around work that ends
+    in a device synchronise)."""
     x, y, train_idx = data
     engine = FedEngine(task, fed, device=device)
     state = engine.init(gen(device, SEED + 3))
+    if packed:
+        state = engine.pack_state(state)
     noise = gen(device, SEED + 1000)
     losses, secs = [], []
     for r in range(rounds):
@@ -1173,13 +1185,13 @@ def run_rounds(task, fed, data, rounds, device):
     return engine, state, losses, secs
 
 
-def drive(label, task, fed, data, rounds, device, want):
+def drive(label, task, fed, data, rounds, device, want, packed=False):
     """One path of the main run, with every launch count set to 0 just
     before it and read just after.  ``want``: the exact launch count of
     each kernel on this path."""
     reset_launches()
     engine, state, losses, secs = run_rounds(task, fed, data, rounds,
-                                             device)
+                                             device, packed)
     got = launch_counts()
     print(f"{label}: losses {losses}")
     print(f"{label}: seconds per round {secs}")
@@ -1191,8 +1203,9 @@ def drive(label, task, fed, data, rounds, device, want):
 
 def main_path(device):
     """The main path's runs; returns each kernel's launch count summed
-    over the paths (each read just after its own path), and the steady
-    seconds per round of each path."""
+    over the paths (each read just after its own path), the steady
+    seconds per round of each path, and the Sophia launches of each
+    phase of `settings_phases`."""
     data = make_data(device)
     print(f"data: {IMAGES} images {tuple(data[0].shape)} on {device}, "
           f"{CLIENTS} clients x {data[2].shape[1]} train samples")
@@ -1307,11 +1320,7 @@ def main_path(device):
         engine, state, losses, secs = drive(label, mlp, fed, data, rounds,
                                             device, want)
         record(label, secs)
-        for name, n in f32x4_want.get(label, {}).items():
-            if tq.F32X4_LAUNCHES[name] != n:
-                raise SystemExit(f"{label}: {tq.F32X4_LAUNCHES[name]} of "
-                                 f"{n} {name} launches took the fp32 form")
-            print(f"{label}: all {n} {name} launches took the fp32 form")
+        check_forms(label, f32x4_want.get(label, {}))
         if rounds > 1 and not losses[-1] < losses[0]:
             raise SystemExit(f"{label}: fed_sophia local loss did not "
                              f"fall: {losses}")
@@ -1367,7 +1376,7 @@ def main_path(device):
     for label, sched, robust, events, want in sched_phases:
         fed = FedConfig(strategy="parallel", comm=int8, sched=sched,
                         robust=robust, **base)
-        secs, losses, state = drive_sched(label, mlp, fed, data, events,
+        secs, losses, state, _ = drive_sched(label, mlp, fed, data, events,
                                           device, want,
                                           attacked=robust.attack != "none")
         record(label, [secs])
@@ -1416,7 +1425,386 @@ def main_path(device):
     label = "sophia-pytree MLP-128"
     secs = drive_pytree(label, device, data, expect(sophia_fused_step=J))
     record(label, [secs])
-    return launches, steady
+    narrow = settings_phases(device, data, mlp, base, record)
+    return launches, steady, narrow
+
+
+# ------------------------------------------- the engine's settings (slice 9)
+BF16_STATE = dict(state_dtype="bfloat16")
+#: the JAX package's fp8 regime (benchmarks/run.py, packed-donated-fp8-
+#: pallas): bf16 params, e4m3 moments, e5m2 hessian EMA
+FP8_STATE = dict(state_dtype="bfloat16", moment_dtype="float8_e4m3fn",
+                 hessian_dtype="float8_e5m2")
+#: the JAX package's resident-byte gates against the fp32 twin
+#: (benchmarks/run.py: bf16 <= 0.55x, the fp8 regime <= 0.30x)
+RESIDENT_GATES = {"bf16-packed": 0.55, "fp8-int8-packed": 0.30}
+#: DONE as the JAX package's Fig. 2 runs it (benchmarks/run.py,
+#: benchmarks/common.py: J=1, lr 1.0; 20 Richardson steps, damping 10)
+DONE = dict(optimizer="done", local_iters=1, lr=1.0,
+            done_richardson_iters=20, done_damping=10.0)
+#: phases whose local loss falls in the JAX package at the same config
+#: (MLP-128 x 32 clients, batch 64, 60,000 synthetic images; the JAX
+#: engine on the CPU, `use_pallas` off)
+LOSS_FALLS = ("fedadam", "fedyogi", "done", "microbatch2", "bf16-packed",
+              "fp8-int8-packed", "bidir-int8-bf16", "probes",
+              "sched-semisync-int8 probes", "sched-semisync-fedadam-bf16")
+
+
+def state_tensors(state) -> dict:
+    """name -> tensor of every resident buffer of an engine state."""
+    out = {}
+
+    def walk(name, x):
+        if isinstance(x, torch.Tensor):
+            out[name] = x
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(f"{name}.{k}", x[k])
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            for k in x._fields:
+                walk(f"{name}.{k}", getattr(x, k))
+    for k in sorted(state):
+        walk(k, state[k])
+    return out
+
+
+def resident_bytes(state) -> int:
+    """The state's resident bytes, exact: every tensor's nbytes."""
+    return sum(t.numel() * t.element_size()
+               for t in state_tensors(state).values())
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
+
+
+def same_state_bits(label, a, b) -> None:
+    ta, tb = state_tensors(a), state_tensors(b)
+    if sorted(ta) != sorted(tb):
+        raise SystemExit(f"{label}: buffers {sorted(ta)} vs {sorted(tb)}")
+    for k in ta:
+        if ta[k].dtype != tb[k].dtype or not torch.equal(bits(ta[k]),
+                                                         bits(tb[k])):
+            raise SystemExit(f"{label}: {k} differs from the unprobed "
+                             "run's")
+    print(f"{label}: state bitwise the unprobed run's ({len(ta)} buffers)")
+
+
+def narrow_band_check(label, got, want, rtol=SMALL_RTOL, atol=SMALL_ATOL):
+    """Every buffer within the band of `kernels.ref.band_breach`: fp32
+    within rtol/atol; a narrow one within that or its
+    `kernels.ref.NARROW_STEPS` steps of its dtype, a few coordinates out
+    to the outlier steps.  Returns each narrow buffer's largest steps
+    apart outside rtol/atol."""
+    tg, tw = state_tensors(got), state_tensors(want)
+    if sorted(tg) != sorted(tw):
+        raise SystemExit(f"{label}: buffers {sorted(tg)} vs {sorted(tw)}")
+    worst = {}
+    for k in tw:
+        if tg[k].dtype != tw[k].dtype:
+            raise SystemExit(f"{label}: {k} is {tg[k].dtype} on the card, "
+                             f"{tw[k].dtype} on the CPU")
+        x, y = tg[k].cpu(), tw[k].cpu()
+        breach = kref.band_breach(x, y, rtol=rtol, atol=atol)
+        if breach:
+            raise SystemExit(f"{label}: {k} on the card against the CPU: "
+                             f"{breach}")
+        if y.dtype in kref.NARROW_STEPS:
+            off = ~((x.float() - y.float()).abs()
+                    <= atol + rtol * y.float().abs())
+            worst[k] = int((kref.dtype_steps(x, y) * off).max())
+    return worst
+
+
+#: small card-vs-CPU runs of the new settings: (FedConfig kwargs, packed)
+SMALL_SETTINGS = {
+    "fedadam": (dict(optimizer="fedadam"), False),
+    "fedyogi sequential packed": (dict(optimizer="fedyogi",
+                                       strategy="sequential"), True),
+    "done": (DONE, False),
+    "done sequential": (dict(DONE, strategy="sequential"), False),
+    "microbatch2": (dict(grad_microbatches=2), False),
+    "microbatch4 round": (dict(grad_microbatches=4,
+                               hessian_every_unit="round"), False),
+    "bf16 packed": (dict(comm=CommConfig(**BF16_STATE)), True),
+    "fp8 packed sequential": (dict(comm=CommConfig(**FP8_STATE),
+                                   strategy="sequential"), True),
+    "fedadam bf16 packed": (dict(optimizer="fedadam",
+                                 comm=CommConfig(**BF16_STATE)), True),
+    "probes": (dict(obs=ObsConfig(probes=True)), False),
+}
+
+
+def small_settings_check(device):
+    """Two small rounds of each new setting on the card against the same
+    rounds on the CPU: same initial weights, batches and GNB noise;
+    the round metrics (losses, probes) within rtol/atol, the state
+    within `narrow_band_check`'s band."""
+    s = SMALL
+    task, x, y, part, init = small_setup()
+    for label, (kw, packed) in SMALL_SETTINGS.items():
+        cfg = dict(num_clients=s["clients"], local_iters=s["iters"],
+                   tau=s["tau"], lr=0.02)
+        cfg.update(kw)
+        fed = FedConfig(**cfg)
+        draws = 1 if fed.hessian_every_unit == "round" else fed.local_iters
+        out = {}
+        for dev in ("cpu", device):
+            engine = FedEngine(task, fed, device=dev)
+            state = engine.init_from_params(
+                {k: v.to(dev) for k, v in init.items()})
+            if packed:
+                state = engine.pack_state(state)
+            scalars = []
+            for r in range(s["rounds"]):
+                b = syn.client_batches(gen("cpu", 10 + r), x, y, part,
+                                       s["batch"])
+                noise = torch.tensor(small_noise(r, s)[:, :draws],
+                                     device=dev)
+                state, metrics = engine.round(
+                    state, {k: v.to(dev) for k, v in b.items()},
+                    gumbel=noise)
+                scalars.append([float(metrics[k]) for k in
+                                ("loss",) + (PROBE_METRICS if
+                                             fed.obs.probes else ())])
+            out[str(dev)] = (np.asarray(scalars), state)
+        (cs, cstate), (gs, gstate) = out["cpu"], out[str(device)]
+        np.testing.assert_allclose(gs, cs, rtol=SMALL_RTOL, atol=SMALL_ATOL,
+                                   err_msg=f"small {label}: round metrics")
+        worst = narrow_band_check(f"small {label}", gstate, cstate)
+        print(f"small {label}: card agrees with the CPU (losses card "
+              f"{gs[:, 0].tolist()} cpu {cs[:, 0].tolist()}); narrow "
+              f"buffers' largest steps apart outside rtol/atol {worst}")
+
+
+def settings_phases(device, data, mlp, base, record):
+    """The engine's settings of slice 9 at full width: FedAdam / FedYogi,
+    DONE (parallel and sequential), micro-batched gradients, bf16 and
+    fp8 resident state (direct, int8 uplink, bidir), the health probes
+    (direct and semisync) and a bf16 FedAdam semisync run.  Each phase
+    runs with the launch counts set to 0 just before it and read just
+    after; the narrow phases also assert each launch's form."""
+    J, R = LOCAL_ITERS, COMM_ROUNDS
+    S = CLIENTS // 2
+    int8 = dict(compressor="int8")
+    bidir = dict(compressor="int8", downlink_compressor="int8",
+                 hessian_compressor="int4", participation=0.5)
+    phases = [  # (label, FedConfig kwargs, rounds, packed, launches, forms)
+        ("fedadam", dict(base, optimizer="fedadam"), R, False, expect(), {}),
+        ("fedyogi", dict(base, optimizer="fedyogi"), R, False, expect(), {}),
+        ("done", dict(base, **DONE), 2, False, expect(), {}),
+        ("done-seq", dict(base, strategy="sequential", **DONE), 1, False,
+         expect(), {}),
+        ("microbatch2", dict(base, grad_microbatches=2), R, False,
+         expect(sophia_update_batched=J * R),
+         {"sophia_update_batched": J * R}),
+        ("bf16-packed", dict(base, comm=CommConfig(**BF16_STATE)), R, True,
+         expect(sophia_update_batched=J * R), {"sophia_update_batched": 0}),
+        ("fp8-int8-packed", dict(base, comm=CommConfig(**int8, **FP8_STATE)),
+         R, True,
+         expect(sophia_update_batched=J * R, quant_roundtrip_batched=R),
+         {"sophia_update_batched": 0, "quant_roundtrip_batched": R}),
+        ("bidir-int8-bf16", dict(base, comm=CommConfig(**bidir,
+                                                       **BF16_STATE)),
+         2, False,
+         expect(broadcast_roundtrip_batched=2, sophia_update_batched=J * 2,
+                quant_roundtrip_batched=2 * 2, quant_roundtrip_flat=2),
+         {"broadcast_roundtrip_batched": 0, "sophia_update_batched": 0,
+          "quant_roundtrip_batched": 2 * 2, "quant_roundtrip_flat": 2}),
+    ]
+    counts = {}     # phase -> its launch counts (for `time_narrow`)
+    for label, kw, rounds, packed, want, forms in phases:
+        kw = dict(kw)
+        kw.setdefault("strategy", "parallel")
+        fed = FedConfig(**kw)
+        torch.cuda.reset_peak_memory_stats()
+        engine, state, losses, secs = drive(label, mlp, fed, data, rounds,
+                                            device, want, packed)
+        record(label, secs)
+        counts[label] = launch_counts()
+        check_forms(label, forms)
+        if label in LOSS_FALLS and not losses[-1] < losses[0]:
+            raise SystemExit(f"{label}: local loss did not fall: {losses}")
+        dtypes = {k: str(t.dtype) for k, t in state_tensors(state).items()}
+        steady_s = (sum(secs[1:]) / (len(secs) - 1) if len(secs) > 1
+                    else secs[0])
+        print(f"{label}: steady seconds per round {steady_s}; "
+              f"resident bytes {resident_bytes(state)}; peak device memory "
+              f"{torch.cuda.max_memory_allocated()} bytes; dtypes {dtypes}")
+        if label in RESIDENT_GATES:
+            twin = dataclasses.replace(fed, comm=dataclasses.replace(
+                fed.comm, state_dtype="float32", moment_dtype="",
+                hessian_dtype=""))
+            twin_engine = FedEngine(mlp, twin, device=device)
+            twin_state = twin_engine.pack_state(
+                twin_engine.init(gen(device, SEED + 3)))
+            share = resident_bytes(state) / resident_bytes(twin_state)
+            print(f"{label}: resident bytes {resident_bytes(state)} = "
+                  f"{share} x the fp32 twin's {resident_bytes(twin_state)} "
+                  f"(gate {RESIDENT_GATES[label]})")
+            if not share <= RESIDENT_GATES[label]:
+                raise SystemExit(f"{label}: resident share {share} above "
+                                 f"{RESIDENT_GATES[label]}")
+
+    # host seconds per round of a narrow or FedOpt phase against its twin
+    # in one call, in turns (twin, phase, phase, twin): host-clock times
+    # spread between calls (PERF.md section 7)
+    for label, twin_kw, kw, packed in (
+            ("bf16-packed", dict(base), dict(base, comm=CommConfig(
+                **BF16_STATE)), True),
+            ("fp8-int8-packed", dict(base, comm=CommConfig(**int8)),
+             dict(base, comm=CommConfig(**int8, **FP8_STATE)), True),
+            ("fedadam", dict(base, optimizer="fedavg"),
+             dict(base, optimizer="fedadam"), False),
+            ("microbatch2", dict(base), dict(base, grad_microbatches=2),
+             False)):
+        turns = []
+        for cfg in (twin_kw, kw, kw, twin_kw):
+            secs = run_rounds(mlp, FedConfig(strategy="parallel", **cfg),
+                              data, 3, device, packed)[3]
+            turns.append(sum(secs[1:]) / 2)
+        print(f"{label}: steady seconds per round in turns (fp32 / fedavg "
+              f"/ one-batch twin, phase, phase, twin) {turns}; phase over "
+              f"twin {(turns[1] + turns[2]) / (turns[0] + turns[3])}")
+
+    # the health probes: direct, then semisync; each probed run's state
+    # bitwise its unprobed twin's, its launches the twin's
+    probed = dict(base, strategy="parallel", obs=ObsConfig(probes=True))
+    label = "probes"
+    want = expect(sophia_update_batched=J * 2)
+    _, state, losses, secs = drive(label, mlp, FedConfig(**probed), data, 2,
+                                   device, want)
+    record(label, secs)
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"{label}: local loss did not fall: {losses}")
+    _, twin, _, _ = drive(label + " (unprobed twin)", mlp,
+                          FedConfig(**dict(probed, obs=ObsConfig())), data,
+                          2, device, want)
+    same_state_bits(label, state, twin)
+    E = SCHED_EVENTS["semisync"]
+    semisync = SchedConfig(discipline="semisync", buffer_size=S, **STRAGGLER)
+    want = expect(sophia_update_batched=J * E, quant_roundtrip_batched=E,
+                  stale_accum_flat=E)
+    label = "sched-semisync-int8 probes"
+    secs, losses, state, trace = drive_sched(
+        label, mlp, FedConfig(**dict(probed, comm=CommConfig(**int8),
+                                     sched=semisync)), data, E, device, want)
+    record(label, [secs])
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"{label}: local loss did not fall: {losses}")
+    recs = [r for r in trace.to_records() if r["record"] == "sched_event"]
+    if not all(k in r and np.isfinite(r[k]) for r in recs
+               for k in PROBE_METRICS):
+        raise SystemExit(f"{label}: an event record lacks a probe scalar")
+    print(f"{label}: probes of the last event "
+          f"{ {k: recs[-1][k] for k in PROBE_METRICS} }")
+    _, _, twin, _ = drive_sched(
+        label + " (unprobed twin)", mlp, FedConfig(**dict(
+            base, strategy="parallel", comm=CommConfig(**int8),
+            sched=semisync)), data, E, device, want)
+    same_state_bits(label, state, twin)
+
+    # FedAdam behind the semisync apply, on bf16 state
+    label = "sched-semisync-fedadam-bf16"
+    secs, losses, state, _ = drive_sched(
+        label, mlp, FedConfig(**dict(
+            base, optimizer="fedadam", strategy="parallel",
+            comm=CommConfig(**int8, **BF16_STATE), sched=semisync)),
+        data, E, device, expect(quant_roundtrip_batched=E,
+                                stale_accum_flat=E), packed=True)
+    record(label, [secs])
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"{label}: local loss did not fall: {losses}")
+    print(f"{label}: resident bytes {resident_bytes(state)}; dtypes "
+          f"{ {k: str(t.dtype) for k, t in state_tensors(state).items()} }")
+    return counts
+
+
+def check_forms(label, forms):
+    """``forms``: entry point -> how many of its launches on the phase
+    just run took the fp32 form (the rest took the runtime-dtype form)."""
+    for name, n in forms.items():
+        got = (tk.F32X4_LAUNCHES if name.startswith("sophia")
+               else tq.F32X4_LAUNCHES)[name]
+        total = launch_counts()[name]
+        if got != n:
+            raise SystemExit(f"{label}: {got} of {total} {name} launches "
+                             f"took the fp32 form, want {n}")
+        print(f"{label}: {name}: {n} of {total} launches on the fp32 form, "
+              f"{total - n} on the runtime-dtype form")
+
+
+def time_narrow(device, launches):
+    """The narrow forms the resident dtype policy launches, at the main
+    path's shape, each with its plain version (`time_pair`; the bound
+    counts each operand's bytes at its own width): row 2 with bf16 m/h
+    and with the fp8 regime's e4m3 m / e5m2 h (theta, g, h_hat fp32),
+    row 5 with bf16 rows, row 9 with bf16 replicas and residuals (the
+    fp32 server model shared; bidir-int8-bf16's S=16 stack).  Each must
+    be bitwise its plain version first.  ``launches``: phase -> its
+    launch counts."""
+    N, R, C = (CLIENTS,) + MLP_PACKED
+    out = []
+    for tag, m_dt, h_dt, phases in (
+            ("bf16 m/h", torch.bfloat16, torch.bfloat16,
+             ("bf16-packed", "bidir-int8-bf16")),
+            ("fp8 regime: e4m3 m, e5m2 h", torch.float8_e4m3fn,
+             torch.float8_e5m2, ("fp8-int8-packed",))):
+        ins = sophia_inputs((N, R, C), device, SEED + 97,
+                            dtypes=(torch.float32, m_dt, h_dt))
+        lr = torch.tensor(LR)
+        err = same_bits("narrow", "sophia_update_batched",
+                        tk.sophia_update_batched(*ins, 1, lr, **HP),
+                        sophia_update_ref(*ins, 1, lr=lr, **HP))
+        # the plain version's e4m3 store is a dozen host-side ops: queue
+        # fewer of its calls behind one sleep
+        t = time_pair(f"sophia_update_batched ({tag})",
+                      lambda i: tk.sophia_update_batched(*ins, 1, lr, **HP),
+                      lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
+                      ins, ins[:3], SOPHIA_OPS, plain_chunk=10)
+        out.append(dict(name="sophia_update_batched", form=tag,
+                        launches=sum(launches[p]["sophia_update_batched"]
+                                     for p in phases),
+                        max_abs_err=err, **t))
+        del ins
+    th, _, _, u, s = quant_inputs((N, R, C), device, SEED + 96,
+                                  store=torch.bfloat16, shared=True,
+                                  qmax=127)
+    err = same_bits("narrow", "quant_roundtrip_batched",
+                    tq.quant_roundtrip_batched(th, u, s, qmax=127),
+                    kref.quant_roundtrip_ref(th, u, s, qmax=127))
+    t = time_pair("quant_roundtrip_batched (bf16 rows)",
+                  lambda i: tq.quant_roundtrip_batched(th, u, s, qmax=127),
+                  lambda i: kref.quant_roundtrip_ref(th, u, s, qmax=127),
+                  [th, u, s], [th], QUANT_OPS["quant"], plain_chunk=10)
+    out.append(dict(name="quant_roundtrip_batched", form="bf16 rows",
+                    launches=0, max_abs_err=err, **t))
+    del th, u, s
+    h = N // 2
+    st, sv, ef, u, s = quant_inputs((h, R, C), device, SEED + 95,
+                                    shared=True, qmax=127)
+    st, ef = st.to(torch.bfloat16), ef.to(torch.bfloat16)
+    err = same_bits("narrow", "broadcast_roundtrip_batched",
+                    tq.broadcast_roundtrip_batched(sv, st, ef, u, s,
+                                                   qmax=127),
+                    kref.broadcast_roundtrip_ref(sv, st, ef, u, s, qmax=127))
+    t = time_pair("broadcast_roundtrip_batched (bf16 replicas, S=16)",
+                  lambda i: tq.broadcast_roundtrip_batched(sv, st, ef, u, s,
+                                                           qmax=127),
+                  lambda i: kref.broadcast_roundtrip_ref(sv, st, ef, u, s,
+                                                         qmax=127),
+                  [sv, st, ef, u, s], [st, ef], QUANT_OPS["broadcast"],
+                  plain_chunk=10)
+    out.append(dict(name="broadcast_roundtrip_batched",
+                    form="bf16 replicas",
+                    launches=launches["bidir-int8-bf16"][
+                        "broadcast_roundtrip_batched"],
+                    max_abs_err=err, **t))
+    for e in out:
+        e.update(route="cuda", source=SOURCES[e["name"]],
+                 replaces=REPLACES[e["name"]], library_ms=None)
+    return out
 
 
 def robust_trim(robust, K):
@@ -1441,7 +1829,7 @@ def dirichlet_data(device, data):
 
 
 def drive_sched(label, task, fed, data, events, device, want,
-                attacked=False):
+                attacked=False, packed=False):
     """One scheduler phase: ``events`` aggregation events of a
     `VirtualScheduler` run (donated state, batches per server version),
     with every launch count set to 0 just before it and read just
@@ -1451,6 +1839,8 @@ def drive_sched(label, task, fed, data, events, device, want,
     x, y, train_idx = data
     engine = FedEngine(task, fed, device=device)
     state = engine.init(gen(device, SEED + 3))
+    if packed:
+        state = engine.pack_state(state)
     sched = VirtualScheduler(
         engine, lambda v: syn.client_batches(gen(device, SEED + 100 + v), x,
                                              y, train_idx, BATCH),
@@ -1482,7 +1872,7 @@ def drive_sched(label, task, fed, data, events, device, want,
     params = engine.unpack_params(state)
     if not all(bool(torch.isfinite(v).all()) for v in params.values()):
         raise SystemExit(f"{label}: non-finite parameters after the run")
-    return secs, losses, state
+    return secs, losses, state, trace
 
 
 def chunk_band(label, task, fed, data, events, device, chunked):
@@ -2503,9 +2893,11 @@ def main() -> None:
     small_comm_round_check(device)
     small_sched_check(device)
     small_robust_check(device)
-    launches, steady = main_path(device)
+    small_settings_check(device)
+    launches, steady, narrow = main_path(device)
     print(f"steady seconds per round by path: {json.dumps(steady)}")
     timing = time_kernels(device)
+    narrow_kernels = time_narrow(device, narrow)
 
     kernels = []
     for name in REPLACES:
@@ -2526,6 +2918,8 @@ def main() -> None:
           "gives 0 for NaN and +0 for -0), top-k's threshold (a compare "
           "and a select) or the trimmed / clipped combine (torch.sort "
           "sorts, it does not trim or weight)")
+    # the narrow forms of rows 2, 5 and 9: beside the 15, not among them
+    print(json.dumps({"narrow_kernels": narrow_kernels}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,10 @@ import torch
 
 from repro_torch.comm.compressors import (Compressor, StochasticQuant,
                                           wants_error_feedback)
-from repro_torch.comm.flat import FlatSpec
+from repro_torch.comm.flat import FlatSpec, zeros
 from repro_torch.configs.base import CommConfig
 from repro_torch.kernels import quantize as kq
+from repro_torch.kernels.ref import store_as
 
 #: engine state keys owned by this module
 MODEL_KEY = "comm_dn_model"
@@ -35,18 +36,20 @@ def wants_downlink_ef(comm: CommConfig) -> bool:
 
 
 def init_state(comm: CommConfig, spec: FlatSpec, packed_params: torch.Tensor,
-               num_clients: int) -> dict:
+               num_clients: int, dtype: torch.dtype = torch.float32) -> dict:
     """Server-side downlink state: every client starts in sync (the
     initial model is assumed distributed out of band), with a zero EF
-    residual.  ``packed_params`` is the model in the downlink layout."""
+    residual.  ``packed_params`` is the model in the downlink layout;
+    ``dtype`` the resident storage dtype of the replicas and residuals
+    (`CommConfig.state_dtype`)."""
     if not comm.downlink_enabled:
         return {}
-    state = {MODEL_KEY: packed_params.expand(
-        (num_clients,) + tuple(packed_params.shape)).clone()}
+    row = store_as(packed_params, dtype)
+    state = {MODEL_KEY: row.expand((num_clients,) + tuple(row.shape))
+             .clone()}
     if wants_downlink_ef(comm):
-        state[EF_KEY] = torch.zeros(
-            (num_clients, spec.rows, spec.cols), dtype=packed_params.dtype,
-            device=packed_params.device)
+        state[EF_KEY] = zeros(spec, (num_clients,), dtype,
+                              device=packed_params.device)
     return state
 
 

@@ -231,9 +231,39 @@ def with_cols(spec: FlatSpec, cols: int) -> FlatSpec:
 def zeros(spec: FlatSpec, lead: Tuple[int, ...] = (),
           dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     """A zeroed flat state buffer in ``spec``'s layout, with optional
-    leading (per-client) axes."""
-    return torch.zeros(tuple(lead) + (spec.rows, spec.cols), dtype=dtype,
-                       device=device)
+    leading (per-client) axes, stored as ``dtype`` (+0 is all-zero bits
+    in every state dtype)."""
+    shape = tuple(lead) + (spec.rows, spec.cols)
+    if dtype.itemsize == 1:
+        return torch.zeros(shape, dtype=torch.uint8,
+                           device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, or for a one-byte float a ``uint8`` view of its
+    bits: torch implements no row gather, scatter or concatenation of
+    the fp8 dtypes on every device, and these moves are bit copies."""
+    return x.view(torch.uint8) if x.element_size() == 1 else x
+
+
+def take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(0, ids)`` in any state dtype (a copy)."""
+    return _bits(x).index_select(0, ids).view(x.dtype)
+
+
+def put_rows_(full: torch.Tensor, ids: torch.Tensor,
+              rows: torch.Tensor) -> torch.Tensor:
+    """``full.index_copy_(0, ids, rows)`` in any state dtype, ``rows``
+    stored in ``full``'s dtype first (`store_as`).  Returns ``full``."""
+    rows = store_as(rows, full.dtype)
+    _bits(full).index_copy_(0, ids, _bits(rows))
+    return full
+
+
+def cat_rows(parts) -> torch.Tensor:
+    """``torch.cat`` of same-dtype buffers in any state dtype."""
+    return torch.cat([_bits(p) for p in parts]).view(parts[0].dtype)
 
 
 def pack(tree: Dict[str, torch.Tensor], spec: FlatSpec,

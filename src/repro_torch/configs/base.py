@@ -1,10 +1,9 @@
 """Federated runtime config dataclasses: the port's own copy of
 `FedConfig` and its nested `CommConfig`, `SchedConfig`, `RobustConfig`
 and `ObsConfig`, with the field names and defaults of the JAX
-package's ``configs/base.py``.
-
-`repro_torch.core.fed` raises `NotImplementedError` for the settings
-the port does not run yet, naming the ROADMAP item that ports each.
+package's ``configs/base.py``.  `repro_torch.core.fed.FedEngine` runs
+every setting the JAX engine runs and raises `ValueError` for unknown
+ones.
 """
 from __future__ import annotations
 
@@ -150,9 +149,11 @@ class RobustConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """Structured telemetry.  ``trace`` (per-dispatch trace contexts of
-    the scheduler) runs; ``probes`` (device-side Sophia health metrics)
-    is not ported yet and raises in the engine."""
+    """Structured telemetry: ``trace`` (per-dispatch trace contexts of
+    the scheduler) and ``probes`` (the Sophia health scalars of
+    `repro_torch.obs.probes` in every round's metrics and event
+    record).  The record sinks and buffers (``flush_every``,
+    ``ring_capacity``) are not ported yet."""
     probes: bool = False
     trace: bool = False
     flush_every: int = 10

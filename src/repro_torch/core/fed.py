@@ -1,5 +1,9 @@
 """Federated runtime of the port: one `FedEngine.round` call is one
-communication round of Alg. 1, for fed_sophia and fedavg.
+communication round of Alg. 1.  Optimizers: fed_sophia (the paper),
+fedavg, the FedOpt baselines fedadam / fedyogi (local SGD, then Adam or
+Yogi on the server over the pseudo-gradient ``params - aggregate``) and
+DONE (one damped-Richardson Newton step per round on Hessian-vector
+products).
 
 Two round paths, as in the JAX package:
   * direct — lossless identity uplink, full participation, no extra
@@ -27,11 +31,26 @@ Two execution strategies:
   * sequential — a Python loop over clients, one flat launch per client
                  per stage; sums accumulate in client order.
 
-The engine is flat-resident: the packed ``(rows, cols)`` fp32 wire
-buffer of `repro_torch.comm.flat` holds the server model, each client's
+The engine is flat-resident: the packed ``(rows, cols)`` wire buffer
+of `repro_torch.comm.flat` holds the server model, each client's
 evolving theta, the Sophia m/h EMAs (``(C, rows, cols)`` across rounds),
 the uplink EF residuals and the downlink replicas.  Parameter dicts
-exist only at the loss/grad boundary.
+exist only at the loss/grad boundary (and for DONE's Hessian-vector
+products).
+
+Resident dtypes (`CommConfig.state_dtype`, ``moment_dtype``,
+``hessian_dtype``; as in the JAX package): m and h are stored in their
+own dtypes, the EF residuals, replicas, packed params and packed
+server m/v in ``state_dtype``.  Compute is fp32: the round upcasts the
+server model at its start; gathered resident rows reach the kernels in
+their storage dtype and each kernel stores its outputs in its inputs'
+dtypes, so m and h are rounded at every local step; every other buffer
+is stored back (`store_as`) when it is scattered.
+
+Micro-batched gradients (``FedConfig.grad_microbatches`` n > 1): each
+loss/grad step, and each GNB estimate, sums ``loss / n`` and ``grads /
+n`` over n consecutive slices of the batch in order (DONE takes whole
+batches, as in the JAX package).
 
 Host-side scalars: the round index, the local step and ``do_h`` are
 Python ints/bools, and lr is a 0-dim float32 CPU tensor, so no step
@@ -52,8 +71,9 @@ direct path both act on the contribution deltas (client model minus
 the round-start model).  A degenerate `RobustConfig` leaves the round on
 its mean path, bitwise.
 
-Settings outside the port so far raise `NotImplementedError`, naming the
-ROADMAP item that ports them.
+With ``ObsConfig.probes`` the round's metrics also carry the Sophia
+health scalars of `repro_torch.obs.probes`, read from the state the
+round produced (which stays bitwise the unprobed round's).
 """
 from __future__ import annotations
 
@@ -68,35 +88,30 @@ from repro_torch.comm.compressors import (BIASED, StochasticQuant,
                                           make_stream_compressor,
                                           participation_sample,
                                           wants_error_feedback)
-from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, flat_spec,
-                                   pack, repack, unpack, with_cols, zeros)
+from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, cat_rows,
+                                   flat_spec, pack, put_rows_, repack,
+                                   take_rows, unpack, with_cols, zeros)
 from repro_torch.configs.base import COMM_STREAMS, FedConfig
-from repro_torch.core.gnb import gnb_estimate
+from repro_torch.core.gnb import accumulate, gnb_estimate, microbatch_slices
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
+from repro_torch.kernels.ref import sign, store_as
 from repro_torch.models.small import gumbel_noise
+from repro_torch.obs import probes as obs_probes
 from repro_torch.robust.aggregators import aggregate_stack, resolve
 from repro_torch.robust.attacks import (attack_wires, byzantine_mask,
                                         wire_attack_active)
+from repro_torch.utils.tree import tree_zeros_like
 
 _COMPRESSORS = ("identity", "int8", "int4") + tuple(sorted(BIASED))
+OPTIMIZERS = ("fed_sophia", "fedavg", "done", "fedadam", "fedyogi")
+#: the FedOpt baselines: local SGD, then Adam / Yogi on the server
+FEDOPT = ("fedadam", "fedyogi")
 
 
-def _not_ported(setting: str, item: str) -> NotImplementedError:
-    """The refusal of a setting the port does not run yet, naming the
-    ROADMAP item that ports it."""
-    return NotImplementedError(
-        f"{setting} is not ported yet (ROADMAP.md, queue 1, item "
-        f"{item!r})")
-
-
-def _check_slice(fed: FedConfig) -> None:
-    """Reject the settings the port does not run yet
-    (`NotImplementedError`) and unknown ones (`ValueError`)."""
-    if fed.optimizer in ("done", "fedadam", "fedyogi"):
-        raise _not_ported(f"optimizer={fed.optimizer!r}",
-                          "engine: fedadam/fedyogi and DONE")
-    if fed.optimizer not in ("fed_sophia", "fedavg"):
+def _check_config(fed: FedConfig) -> None:
+    """Reject unknown and inconsistent settings (`ValueError`)."""
+    if fed.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {fed.optimizer!r}")
     if fed.strategy not in ("parallel", "sequential"):
         raise ValueError(f"unknown strategy {fed.strategy!r}")
@@ -111,10 +126,15 @@ def _check_slice(fed: FedConfig) -> None:
     if not 0.0 < comm.participation <= 1.0:
         raise ValueError(f"participation={comm.participation} must be in "
                          "(0, 1]")
-    if comm.hessian_enabled and not (fed.optimizer == "fed_sophia"
-                                     and fed.persistent_client_state):
+    stateful = fed.optimizer == "fed_sophia" and fed.persistent_client_state
+    if comm.hessian_enabled and not stateful:
         raise ValueError(
             "the hessian comm stream aggregates the Sophia h-EMA: it "
+            "requires optimizer='fed_sophia' with "
+            "persistent_client_state=True")
+    if fed.obs.probes and not stateful:
+        raise ValueError(
+            "ObsConfig.probes reads the persistent Sophia m/h EMAs: it "
             "requires optimizer='fed_sophia' with "
             "persistent_client_state=True")
     if fed.sched.dispatch_chunk < 0:
@@ -123,16 +143,8 @@ def _check_slice(fed: FedConfig) -> None:
     # unknown aggregators and attacks raise ValueError here, not mid-round
     resolve(fed.robust, fed.num_clients)
     byzantine_mask(fed.robust, fed.num_clients)
-    if fed.obs.probes:
-        raise _not_ported("ObsConfig.probes=True", "obs")
-    if fed.grad_microbatches > 1:
-        raise _not_ported(f"grad_microbatches={fed.grad_microbatches}",
-                          "engine: grad_microbatches")
     for name in ("state_dtype", "moment_dtype", "hessian_dtype"):
-        dt = getattr(comm, name) or comm.state_dtype
-        if as_dtype(dt) != torch.float32:
-            raise _not_ported(f"CommConfig.{name}={dt!r}",
-                              "resident dtype policy")
+        as_dtype(getattr(comm, name) or comm.state_dtype)
 
 
 class CommRuntime(NamedTuple):
@@ -169,7 +181,7 @@ class ClientNoise(NamedTuple):
 
 class FedEngine:
     def __init__(self, task, fed: FedConfig, device=None):
-        _check_slice(fed)
+        _check_config(fed)
         self.task = task
         self.fed = fed
         self.device = resolve_device(device)
@@ -179,6 +191,26 @@ class FedEngine:
         self._rt: Optional[CommRuntime] = None
 
     # ------------------------------------------------- residency helpers
+    @property
+    def state_dtype(self) -> torch.dtype:
+        """Storage dtype of resident wire-layout state (EF residuals,
+        replicas, packed params and server m/v)."""
+        return as_dtype(self.fed.comm.state_dtype)
+
+    @property
+    def moment_dtype(self) -> torch.dtype:
+        """Storage dtype of the ``(C, rows, cols)`` Sophia m stack
+        (``CommConfig.moment_dtype``, "" -> ``state_dtype``)."""
+        return as_dtype(self.fed.comm.moment_dtype
+                        or self.fed.comm.state_dtype)
+
+    @property
+    def hessian_dtype(self) -> torch.dtype:
+        """Storage dtype of the ``(C, rows, cols)`` Sophia h stack
+        (``CommConfig.hessian_dtype``, "" -> ``state_dtype``)."""
+        return as_dtype(self.fed.comm.hessian_dtype
+                        or self.fed.comm.state_dtype)
+
     @staticmethod
     def params_packed(params) -> bool:
         """Whether ``state["params"]`` is a packed ``(rows, cols)`` wire
@@ -239,35 +271,49 @@ class FedEngine:
         spec = rt.spec
         C = self.fed.num_clients
         comm = self.fed.comm
+        dev, dt = self.device, self.state_dtype
         state: Dict[str, Any] = {"params": params, "round": 0}
         if self._stateful():
             state["client_opt"] = SophiaState(
-                m=zeros(spec, (C,), device=self.device),
-                h=zeros(spec, (C,), device=self.device))
+                m=zeros(spec, (C,), self.moment_dtype, device=dev),
+                h=zeros(spec, (C,), self.hessian_dtype, device=dev))
+        if self.fed.optimizer in FEDOPT:
+            state["server_opt"] = {"m": tree_zeros_like(params),
+                                   "v": tree_zeros_like(params)}
         if wants_error_feedback(comm):
-            state["comm_ef"] = zeros(spec, (C,), device=self.device)
+            state["comm_ef"] = zeros(spec, (C,), dt, device=dev)
         if comm.downlink_enabled:
-            theta = (params.to(torch.float32) if self.params_packed(params)
-                     else pack(params, spec))
+            theta = store_as(params.to(torch.float32), dt) \
+                if self.params_packed(params) else pack(params, spec, dt)
             state.update(downlink.init_state(
-                comm, rt.spec_dn, repack(theta, spec, rt.spec_dn), C))
+                comm, rt.spec_dn, repack(theta, spec, rt.spec_dn), C, dt))
         return state
 
     # ------------------------------------------- packed-resident boundary
     def pack_state(self, state) -> Dict[str, Any]:
-        """Keep ``state["params"]`` packed between rounds too.
-        Idempotent."""
+        """Keep ``state["params"]`` (and the FedOpt server m/v) packed
+        between rounds too, stored in ``state_dtype``.  Idempotent."""
         params = state["params"]
         if self.params_packed(params):
             return state
-        return {**state, "params": pack(params, self.spec_for(params))}
+        spec, dt = self.spec_for(params), self.state_dtype
+        out = {**state, "params": pack(params, spec, dt)}
+        if "server_opt" in state:
+            out["server_opt"] = {k: pack(v, spec, dt)
+                                 for k, v in state["server_opt"].items()}
+        return out
 
     def unpack_state(self, state) -> Dict[str, Any]:
         """Inverse of `pack_state`.  Idempotent on dict-resident state."""
         params = state["params"]
         if not self.params_packed(params):
             return state
-        return {**state, "params": unpack(params, self._require_rt().spec)}
+        spec = self._require_rt().spec
+        out = {**state, "params": unpack(params, spec)}
+        if "server_opt" in state:
+            out["server_opt"] = {k: unpack(v, spec)
+                                 for k, v in state["server_opt"].items()}
+        return out
 
     def unpack_params(self, state):
         """The params dict view of ``state`` under either residency."""
@@ -369,7 +415,25 @@ class FedEngine:
         for k in ("uplink_bytes", "downlink_bytes", "hessian_uplink_bytes",
                   "hessian_downlink_bytes", "total_bytes"):
             metrics[k] = wire[k]
+        if fed.obs.probes:
+            # reads of the state the round produced, nothing written
+            metrics.update(obs_probes.sophia_health(
+                state["client_opt"], round_idx, fed, rt.spec.total))
         return state, metrics
+
+    def probe_metrics(self, state) -> Dict[str, torch.Tensor]:
+        """The Sophia health probes (`repro_torch.obs.probes`) of a state
+        outside `round`, for its last round: the virtual-time scheduler
+        applies aggregates itself and probes the state after each."""
+        if not self._stateful():
+            raise ValueError(
+                "probe_metrics reads the persistent Sophia m/h EMAs: it "
+                "requires optimizer='fed_sophia' with "
+                "persistent_client_state=True")
+        rt = self.runtime_for(state["params"])
+        return obs_probes.sophia_health(state["client_opt"],
+                                        int(state["round"]) - 1, self.fed,
+                                        rt.spec.total)
 
     def _gumbel_source(self, batches, generator, gumbel, ids):
         """``noise(clients, j)`` -> the gumbel noise of GNB draw ``j`` for
@@ -548,10 +612,11 @@ class FedEngine:
             agg_flat = theta + self._combine_robust(
                 new_t - theta, byzantine_mask(rb, C), attack_noise)
         if packed:
-            state = {**state, "params": agg_flat.to(params.dtype)}
+            state = self._apply_aggregate_flat(state, agg_flat)
         else:
-            state = {**state, "params": unpack(agg_flat, spec)}
+            state = self._apply_aggregate(state, unpack(agg_flat, spec))
         if self._stateful():
+            # the kernel stored the m/h rows in their own dtypes
             state = {**state, "client_opt": new_opt}
         return state, torch.mean(losses)
 
@@ -580,7 +645,8 @@ class FedEngine:
         dn_ef = state.get(downlink.EF_KEY)
 
         def take(x):
-            return x if x is None or ids is None else x.index_select(0, ids)
+            # gathered rows keep their storage dtype
+            return x if x is None or ids is None else take_rows(x, ids)
 
         opts_g = (None if opts is None
                   else SophiaState(m=take(opts.m), h=take(opts.h)))
@@ -651,7 +717,7 @@ class FedEngine:
                 for rows, new in ((ef_g, ef_k), (dnm_g, dnm_k),
                                   (dnef_g, dnef_k)):
                     if rows is not None:
-                        rows[k].copy_(new)
+                        rows[k].copy_(store_as(new, rows.dtype))
                 if rt.dn_on:
                     dn_mean = dn_mean + dnm_k / S
                 if rt.h_on:
@@ -672,12 +738,15 @@ class FedEngine:
             agg = agg + repack(dn_mean - theta_dn, rt.spec_dn, spec)
         new_theta = theta + agg
         if packed:
-            state = {**state, "params": new_theta.to(params.dtype)}
+            state = self._apply_aggregate_flat(state, new_theta)
         else:
-            state = {**state, "params": unpack(new_theta, spec)}
+            state = self._apply_aggregate(state, unpack(new_theta, spec))
 
         def scatter(full, rows):
-            return rows if ids is None else full.index_copy_(0, ids, rows)
+            # rows stored back in the resident dtype
+            if ids is None:
+                return store_as(rows, full.dtype)
+            return put_rows_(full, ids, rows)
 
         if opts is not None:
             h = scatter(opts.h, opt_new.h)
@@ -687,12 +756,13 @@ class FedEngine:
                 h_down, _ = rt.comp_h.roundtrip(
                     uniform("server_hessian", None),
                     rt.comp_h.server_combine(h_agg, h_wstat))
-                h_common = repack(h_down, rt.spec_h, spec)
+                h_common = store_as(repack(h_down, rt.spec_h, spec),
+                                    h.dtype)
                 h_common = h_common.expand((S,) + tuple(h_common.shape))
                 if ids is None:
                     h.copy_(h_common)
                 else:
-                    h.index_copy_(0, ids, h_common)
+                    put_rows_(h, ids, h_common)
             state = {**state, "client_opt": SophiaState(
                 m=scatter(opts.m, opt_new.m), h=h)}
         for key, full, rows in (("comm_ef", ef, ef_new),
@@ -820,9 +890,9 @@ class FedEngine:
             if parts[0] is None:
                 return None
             if isinstance(parts[0], SophiaState):
-                return SophiaState(m=torch.cat([p.m for p in parts]),
-                                   h=torch.cat([p.h for p in parts]))
-            return torch.cat(parts)
+                return SophiaState(m=cat_rows([p.m for p in parts]),
+                                   h=cat_rows([p.h for p in parts]))
+            return cat_rows(parts)
         return tuple(cat(list(p)) for p in zip(*outs))
 
     # ------------------------------------------------- one client, dispatch
@@ -842,6 +912,10 @@ class FedEngine:
                 spec, theta, opt.m, opt.h, batch, round_idx, noise, lr)
             opt = SophiaState(m=m, h=h)
             return t, (opt if fed.persistent_client_state else None), loss
+        if fed.optimizer == "done":
+            t, loss = self._local_done_flat(spec, theta, batch, lr)
+            return t, None, loss
+        # fedavg and the FedOpt baselines train local SGD
         t, loss = self._local_sgd_flat(spec, theta, batch, lr)
         return t, None, loss
 
@@ -863,6 +937,10 @@ class FedEngine:
                 spec, theta, opts.m, opts.h, batches, round_idx, noise, lr)
             opt = SophiaState(m=m, h=h)
             return t, (opt if fed.persistent_client_state else None), loss
+        if fed.optimizer == "done":
+            t, loss = self._local_done_flat(
+                spec, self._cohort_start(theta, N), batches, lr)
+            return t, None, loss
         t, loss = self._local_sgd_flat_batched(spec, theta, batches, lr)
         return t, None, loss
 
@@ -870,28 +948,44 @@ class FedEngine:
     def _flat_value_and_grad(self, theta, batch, spec):
         """The loss/grad boundary: ONE unpack view feeds autograd, ONE
         pack lays the grads back.  ``theta`` may carry a leading client
-        axis; each client's grads then come from its own loss.  Also
-        returns the params view for the GNB refresh."""
+        axis; each client's grads then come from its own loss.  With
+        ``grad_microbatches`` n > 1, ``loss / n`` and ``grads / n`` are
+        summed over the batch's n slices in order (the JAX engine's
+        ``_value_and_grad``).  Also returns the params view for the GNB
+        refresh."""
         pg = {k: v.detach().requires_grad_(True)
               for k, v in unpack(theta, spec).items()}
-        loss = self.task.loss(pg, batch)
-        grads = torch.autograd.grad(loss.sum(), [pg[k] for k in spec.keys])
-        return loss.detach(), pack(dict(zip(spec.keys, grads)), spec), pg
+        n = self.fed.grad_microbatches
+        loss = grads = None
+        for mb in microbatch_slices(batch, n):
+            loss_i = self.task.loss(pg, mb)
+            g = torch.autograd.grad(loss_i.sum(),
+                                    [pg[k] for k in spec.keys])
+            loss_i = loss_i.detach()
+            loss = loss_i if n <= 1 else (
+                loss_i / n if loss is None else loss + loss_i / n)
+            grads = accumulate(grads, g, n)
+        return loss, pack(dict(zip(spec.keys, grads)), spec), pg
+
+    def _gnb(self, params, batch, gumbel):
+        """The GNB estimate of ``params`` in wire layout (micro-batched
+        as the loss/grad boundary is)."""
+        return gnb_estimate(self.task, params, batch, gumbel,
+                            self.fed.grad_microbatches)
 
     def _sophia_loop(self, spec, t, m, h, batch, round_idx, noise, lr):
         """The J local Sophia iterations over the buffers ``t``, ``m``,
         ``h`` (one client ``(rows, cols)``, or a cohort ``(N, rows,
         cols)``), updated in place.  Returns the per-step losses."""
         fed = self.fed
-        task = self.task
         no_hh = torch.zeros_like(t)
         # round mode (Alg. 1 line 9 literal): the GNB estimate uses the
         # round-start params, once per refresh round
         round_mode = fed.hessian_every_unit == "round"
         if round_mode:
             do_h_round = round_idx % fed.tau == 0
-            hh_round = (pack(gnb_estimate(task, unpack(t, spec), batch,
-                                          noise(0)), spec)
+            hh_round = (pack(self._gnb(unpack(t, spec), batch, noise(0)),
+                             spec)
                         if do_h_round else no_hh)
         losses = []
         for j in range(fed.local_iters):
@@ -901,7 +995,7 @@ class FedEngine:
                 hh = hh_round
             else:
                 do_h = (round_idx * fed.local_iters + j) % fed.tau == 0
-                hh = (pack(gnb_estimate(task, pg, batch, noise(j)), spec)
+                hh = (pack(self._gnb(pg, batch, noise(j)), spec)
                       if do_h else no_hh)
             # in place: the engine owns t, and m/h are the resident EMAs
             # (the counterpart of the JAX round's buffer donation)
@@ -957,3 +1051,124 @@ class FedEngine:
         """`_local_sgd_flat` for N clients at once."""
         t = self._cohort_start(theta, int(batches["y"].shape[0]))
         return self._local_sgd_flat(spec, t, batches, lr)
+
+    # ------------------------------------------------------- DONE (local)
+    def _local_done_flat(self, spec, theta, batch, lr):
+        """DONE: one approximate Newton step ``theta - lr * cap * d`` with
+        ``d ~= (H + damping I)^-1 g`` by damped Richardson iteration on
+        Hessian-vector products (the JAX package's ``_local_done``).
+        ``theta``: one client's ``(rows, cols)`` model, or a cohort's
+        ``(N, rows, cols)`` stack (not written).  Every norm, ``lmax``,
+        the step size ``alpha`` and the trust-region cap are per client.
+
+        Per client: ``alpha = 0.9 / (lmax + damping)`` with ``lmax`` the
+        last of 5 power iterations from ``g / |g|`` (Richardson needs
+        ``alpha (lmax + damping) < 2``, and non-IID clients differ
+        wildly in curvature); ``done_richardson_iters`` steps ``d += alpha
+        (g - H d - damping d)`` from ``d = 0``; the step capped at
+        ``min(1, 10 |g| / |d|)`` (indefinite local Hessians can blow the
+        solve up).  HVPs by double backward through the loss's gradient;
+        whole batches (the JAX engine calls ``jax.value_and_grad`` here,
+        not its micro-batched form).  Returns ``(new_theta,
+        loss)``."""
+        fed = self.fed
+        lead = theta.ndim - 2
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in unpack(theta, spec).items()}
+        keys = list(spec.keys)           # sorted: the JAX leaf order
+        leaves = [params[k] for k in keys]
+        loss = self.task.loss(params, batch)
+        g = torch.autograd.grad(loss.sum(), leaves, create_graph=True)
+        g0 = [x.detach() for x in g]
+
+        def hvp(d):
+            hd = torch.autograd.grad(g, leaves, grad_outputs=d,
+                                     retain_graph=True, allow_unused=True)
+            return [torch.zeros_like(x) if y is None else y.detach()
+                    for x, y in zip(d, hd)]
+
+        def norm(tree):
+            # sqrt(sum over leaves, in order, of each client's vdot)
+            sq = 0
+            for x in tree:
+                sq = sq + torch.sum(x * x, dim=tuple(range(lead, x.ndim)))
+            return torch.sqrt(sq)
+
+        def per_client(s, x):
+            return s.reshape(s.shape + (1,) * (x.ndim - lead))
+
+        gn = norm(g0)
+        v = [x / per_client(gn + 1e-12, x) for x in g0]
+        for _ in range(5):
+            hv = hvp(v)
+            nrm = norm(hv) + 1e-12
+            v = [x / per_client(nrm, x) for x in hv]
+        alpha = 0.9 / (nrm + fed.done_damping)
+        d = [torch.zeros_like(x) for x in g0]
+        for _ in range(fed.done_richardson_iters):
+            hd = hvp(d)
+            d = [dd + per_client(alpha, dd) * ((gg - hh)
+                                               - fed.done_damping * dd)
+                 for dd, gg, hh in zip(d, g0, hd)]
+        cap = torch.clamp(10.0 * gn / (norm(d) + 1e-12), max=1.0)
+        step = lr * cap
+        new = {k: (params[k].detach() - per_client(step, dd) * dd)
+               for k, dd in zip(keys, d)}
+        return pack(new, spec), loss.detach()
+
+    # ----------------------------------------------------- the server step
+    def _apply_aggregate(self, state, agg):
+        """The server step on the aggregated params dict ``agg``: FedOpt
+        applies Adam / Yogi to the pseudo-gradient, everything else
+        takes ``agg`` as the new model."""
+        if self.fed.optimizer in FEDOPT:
+            return self._server_opt_update(state, agg)
+        return {**state, "params": agg}
+
+    def _apply_aggregate_flat(self, state, agg_flat):
+        """`_apply_aggregate` for packed-resident state: ``agg_flat`` the
+        fp32 aggregate in wire layout, the new model stored in the
+        resident dtype."""
+        if self.fed.optimizer in FEDOPT:
+            return self._server_opt_update_flat(state, agg_flat)
+        return {**state,
+                "params": store_as(agg_flat, state["params"].dtype)}
+
+    def _server_step(self, p, m0, v0, agg):
+        """Adam / Yogi over one fp32 buffer, the JAX operation order:
+        ``delta = p - agg``; ``m = b1 m + (1 - b1) delta``; Adam ``v = b2
+        v + (1 - b2) delta^2``, Yogi ``v = v - (1 - b2) delta^2
+        sign(v - delta^2)``; ``p - lr m / (sqrt(v) + eps)``."""
+        fed = self.fed
+        delta = p - agg
+        m = fed.server_beta1 * m0 + (1 - fed.server_beta1) * delta
+        if fed.optimizer == "fedadam":
+            v = (fed.server_beta2 * v0
+                 + (1 - fed.server_beta2) * delta * delta)
+        else:
+            v = v0 - ((1 - fed.server_beta2) * delta * delta
+                      * sign(v0 - delta * delta))
+        return p - fed.server_lr * m / (torch.sqrt(v) + fed.server_eps), m, v
+
+    def _server_opt_update(self, state, agg):
+        """FedOpt over parameter dicts (server m/v in the params' form);
+        the new params stored in their own dtypes."""
+        so, params = state["server_opt"], state["params"]
+        out = {k: self._server_step(p, so["m"][k], so["v"][k], agg[k])
+               for k, p in params.items()}
+        return {**state,
+                "params": {k: store_as(o[0], params[k].dtype)
+                           for k, o in out.items()},
+                "server_opt": {"m": {k: o[1] for k, o in out.items()},
+                               "v": {k: o[2] for k, o in out.items()}}}
+
+    def _server_opt_update_flat(self, state, agg):
+        """FedOpt over packed buffers: fp32 compute, each buffer stored
+        back in its resident dtype."""
+        so = state["server_opt"]
+        f32 = [x.to(torch.float32) for x in (state["params"], so["m"],
+                                             so["v"])]
+        p, m, v = self._server_step(*f32, agg)
+        return {**state, "params": store_as(p, state["params"].dtype),
+                "server_opt": {"m": store_as(m, so["m"].dtype),
+                               "v": store_as(v, so["v"].dtype)}}

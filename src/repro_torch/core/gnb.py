@@ -16,14 +16,52 @@ import torch
 
 
 def gnb_estimate(task, params: Dict[str, torch.Tensor], batch,
-                 gumbel: torch.Tensor) -> Dict[str, torch.Tensor]:
+                 gumbel: torch.Tensor,
+                 microbatches: int = 1) -> Dict[str, torch.Tensor]:
     """The h_hat dict (same keys and shapes as ``params``).  ``params``
     leaves may carry a leading client axis, with ``batch`` and
     ``gumbel`` batched alike; each client's estimate uses only its own
-    loss.  Evaluated as ``(B * g) * g``, the JAX order."""
+    loss.  Evaluated as ``(B * g) * g``, the JAX order, with B the whole
+    batch.
+
+    ``microbatches`` n > 1 takes g_hat as the JAX engine's micro-batched
+    ``value_and_grad`` does (`FedEngine._value_and_grad`): the batch
+    axis split into n equal consecutive slices, ``sum_i g_i / n`` in
+    order; micro-batch i reads the i-th slice of ``gumbel``'s batch axis
+    (its draws laid out micro-batch by micro-batch)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = task.sampled_loss(leaves, batch, gumbel)
     keys = list(leaves)
-    g_hat = torch.autograd.grad(loss.sum(), [leaves[k] for k in keys])
+    g_hat = None
+    for mb in microbatch_slices({**batch, "gumbel": gumbel}, microbatches):
+        loss = task.sampled_loss(leaves, mb, mb["gumbel"])
+        g = torch.autograd.grad(loss.sum(), [leaves[k] for k in keys])
+        g_hat = accumulate(g_hat, g, microbatches)
     B = task.gnb_batch_size(batch)
     return {k: B * g * g for k, g in zip(keys, g_hat)}
+
+
+def microbatch_slices(batch, n: int):
+    """The ``n`` consecutive equal slices of ``batch``'s batch axis (the
+    last axis of ``batch["y"]``; every leaf has it at that position), as
+    the JAX engine's reshape to ``(n, B / n)`` lays them out; ``[batch]``
+    itself for n <= 1."""
+    if n <= 1:
+        return [batch]
+    axis = batch["y"].ndim - 1
+    B = int(batch["y"].shape[axis])
+    if B % n:
+        raise ValueError(f"a batch of {B} does not split into {n} "
+                         "micro-batches")
+    return [{k: v.narrow(axis, i * (B // n), B // n)
+             for k, v in batch.items()} for i in range(n)]
+
+
+def accumulate(acc, grads, n: int):
+    """One micro-batch's term of the JAX engine's running mean: ``acc +
+    g / n`` leaf by leaf (``g`` itself for n <= 1), ``acc`` None before
+    the first (where the JAX scan's ``0 + g / n`` is ``g / n``)."""
+    if n <= 1:
+        return list(grads)
+    if acc is None:
+        return [g / n for g in grads]
+    return [a + g / n for a, g in zip(acc, grads)]

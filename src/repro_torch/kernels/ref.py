@@ -6,6 +6,10 @@ fp32, computes in fp32, and stores each output in the corresponding
 input's dtype by `store_as`.  The ops run one by one in the JAX
 reference's order, so at fp32 on the CPU the result is bitwise the JAX
 package's eager ``kernels/ref.py``.
+
+`dtype_steps` and `outside_band` hold two runs' narrow resident buffers
+to a few steps of their dtype: the one band rule of the tests and of
+`chip_smoke.py`.
 """
 from __future__ import annotations
 
@@ -22,12 +26,77 @@ def store_as(x, dtype):
     stores it: round to nearest even; NaN stays NaN.  For e4m3, NaN with
     x's sign past +-464 and for +-inf: those values are masked before
     ``Tensor.to``, which saturates them to +-448 in some torch versions
-    and not in others.  bf16 and e5m2 by ``Tensor.to``."""
+    and not in others.  bf16 and e5m2 by ``Tensor.to``; ``x`` itself
+    when it is already stored as ``dtype``."""
+    if x.dtype == dtype:
+        return x
     if dtype == torch.float8_e4m3fn:
         x = torch.where(x.abs() > E4M3_OVERFLOW,
                         torch.copysign(torch.full_like(x, float("nan")), x),
                         x)
     return x.to(dtype)
+
+
+#: integer view and magnitude bits of each narrow resident dtype
+_ORDINAL = {torch.bfloat16: (torch.int16, 0x7FFF),
+            torch.float8_e4m3fn: (torch.uint8, 0x7F),
+            torch.float8_e5m2: (torch.uint8, 0x7F)}
+
+
+def dtype_steps(a, b):
+    """Elementwise, how many steps of their narrow dtype ``a`` and ``b``
+    lie apart: the distance of their ordinals (sign and magnitude bits,
+    +0 and -0 one value), as int32 on ``a``'s device."""
+    assert a.dtype == b.dtype and a.dtype in _ORDINAL, (a.dtype, b.dtype)
+    view, mag = _ORDINAL[a.dtype]
+
+    def ordinal(x):
+        bits = x.contiguous().view(view).to(torch.int32)
+        m = bits & mag
+        return torch.where(bits != m, -m, m)
+    return (ordinal(a) - ordinal(b.to(a.device))).abs()
+
+
+#: narrow dtype -> (steps, outlier steps): how far apart two runs of one
+#: round may leave a narrow resident buffer whose fp32 arithmetic differs
+#: in the last ulps (another summation order, another device): each
+#: coordinate within ``steps`` of its dtype, a few within ``outlier
+#: steps`` (an EMA whose terms cancel carries a step of the larger term
+#: into several of the smaller result's).  Measured in
+#: tests/test_torch_residency.py and by chip_smoke.py.
+NARROW_STEPS = {torch.bfloat16: (2, 4), torch.float8_e4m3fn: (1, 2),
+                torch.float8_e5m2: (1, 2)}
+
+
+def outside_band(got, want, *, rtol, atol, outliers=False):
+    """Coordinates of ``got`` outside the band around ``want``: more
+    than ``atol + rtol * |want|`` apart in fp32 and, for a narrow dtype,
+    more than its `NARROW_STEPS` steps (the outlier steps with
+    ``outliers``) apart.  A bool tensor on ``got``'s device."""
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    want = want.to(got.device)
+    x, y = got.float(), want.float()
+    out = ~((x - y).abs() <= atol + rtol * y.abs())
+    if got.dtype in NARROW_STEPS:
+        out &= dtype_steps(got, want) > NARROW_STEPS[got.dtype][int(outliers)]
+    return out
+
+
+#: coordinates of one buffer that may lie out to the outlier steps
+MAX_OUTLIERS = 16
+
+
+def band_breach(got, want, *, rtol, atol):
+    """Why a whole buffer ``got`` is outside the band around ``want``
+    (a coordinate past the outlier steps, or more than `MAX_OUTLIERS`
+    past the steps), or None when it is within it."""
+    far = int(outside_band(got, want, rtol=rtol, atol=atol,
+                           outliers=True).sum())
+    out = int(outside_band(got, want, rtol=rtol, atol=atol).sum())
+    if far or out > MAX_OUTLIERS:
+        return (f"{out} coordinates past the band, {far} past its "
+                f"outliers' ({got.dtype}, {MAX_OUTLIERS} outliers allowed)")
+    return None
 
 
 def sophia_update_ref(theta, m, h, g, h_hat, do_h, *, lr, beta1, beta2,

@@ -8,7 +8,8 @@ five operands are fp32 and all eight pointers 16-byte aligned
 (`takes_f32x4`), else its runtime-dtype form.  For CPU tensors it runs
 the plain version `ref.sophia_update_ref`; that is the only case in
 which the plain version runs.  ``LAUNCHES`` counts kernel launches per
-entry point (CPU calls count nothing).
+entry point, ``F32X4_LAUNCHES`` those of them that took the fp32 form
+(CPU calls count nothing).
 """
 from __future__ import annotations
 
@@ -24,11 +25,14 @@ from repro_torch.kernels.ref import sophia_update_ref
 #: kernel launches per entry point since the last `reset_launches`
 LAUNCHES: Dict[str, int] = {"sophia_update_flat": 0,
                             "sophia_update_batched": 0}
+#: of those, the launches that took the fp32 form
+F32X4_LAUNCHES: Dict[str, int] = dict(LAUNCHES)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32X4_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 #: blocks per SM at most in the fp32 form's grid (fewer when every float4
@@ -110,7 +114,8 @@ def _launch(name, theta, m, h, g, h_hat, do_h, lr, hp, inplace):
                hp["weight_decay"])
     ptrs = [t.data_ptr() for t in outs + ins]
     stream = torch.cuda.current_stream(theta.device).cuda_stream
-    if takes_f32x4(*outs, *ins):
+    f32x4 = takes_f32x4(*outs, *ins)
+    if f32x4:
         err = lib.sophia_update_f32x4_launch(
             *ptrs, n, *scalars, f32x4_blocks(n, theta.device), stream)
     else:
@@ -123,6 +128,7 @@ def _launch(name, theta, m, h, g, h_hat, do_h, lr, hp, inplace):
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[name] += 1
+    F32X4_LAUNCHES[name] += f32x4
     return outs
 
 

@@ -1,2 +1,3 @@
-"""Observability of the port: host span timers (`spans`).  The JAX
-package's schema, sinks, buffers and probes come with a later slice."""
+"""Observability of the port: host span timers (`spans`) and the Sophia
+health probes (`probes`).  The JAX package's schema, sinks and buffers
+come with a later slice."""

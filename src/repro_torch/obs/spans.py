@@ -15,11 +15,7 @@ from typing import List, Optional
 
 import torch
 
-#: the Sophia health scalars an event record may carry (the JAX
-#: package's ``repro.obs.probes.PROBE_METRICS``); `SchedTrace.
-#: from_records` reads them back
-PROBE_METRICS = ("clip_fraction", "m_norm", "h_norm", "h_staleness",
-                 "gnb_refreshes")
+from repro_torch.obs.probes import PROBE_METRICS  # noqa: F401 (re-export)
 
 
 class SpanLog:

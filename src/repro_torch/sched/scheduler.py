@@ -28,7 +28,11 @@ stale-accumulate kernel (`repro_torch.kernels.stale_accum`):
 (the JAX package's kernel route; its plain route computes
 ``sum_k w_k x_k / wsum``, equal only where the reciprocal is exact), or,
 with a non-degenerate `RobustConfig` aggregator, with the robust-combine
-kernel.  ``wsum`` is summed on the host in ascending order.
+kernel.  ``wsum`` is summed on the host in ascending order.  The new model goes
+through the engine's server step (FedOpt's Adam / Yogi where
+configured), and the arrivals' rows are stored back in their resident
+dtypes.  With ``ObsConfig.probes`` each event record carries the Sophia
+health scalars of the state after it.
 
 Randomness (the RNG seam): the participants of version 0 and of each
 sync round, and per dispatch group its GNB gumbel noise, the U[0, 1)
@@ -50,7 +54,8 @@ from repro_torch.comm import accounting
 from repro_torch.comm import downlink as cdown
 from repro_torch.comm.compressors import (StochasticQuant,
                                           participation_sample)
-from repro_torch.comm.flat import pack, repack, unpack
+from repro_torch.comm.flat import (cat_rows, pack, put_rows_, repack,
+                                   take_rows, unpack)
 from repro_torch.configs.base import SCHED_DISCIPLINES
 from repro_torch.core.fed import ClientNoise
 from repro_torch.core.schedules import lr_at_round
@@ -58,7 +63,8 @@ from repro_torch.core.sophia import SophiaState
 from repro_torch.kernels.stale_accum import stale_accum_flat
 from repro_torch.metrics import energy
 from repro_torch.models.small import gumbel_noise
-from repro_torch.obs.spans import PROBE_METRICS, SpanLog
+from repro_torch.obs.probes import PROBE_METRICS
+from repro_torch.obs.spans import SpanLog
 from repro_torch.robust import aggregators as robust_agg
 from repro_torch.robust import attacks as robust_attacks
 from repro_torch.sched import latency
@@ -75,8 +81,9 @@ class SchedEvent:
     Byte counters are EXACT Python ints from the accounting model
     (`repro_torch.comm.accounting.stream_bytes`) — ``cum_bytes`` is the
     all-streams total and always equals the sum of the four per-stream
-    counters; ``probes`` holds the Sophia health scalars of a record
-    that carries them (the port does not compute them yet)."""
+    counters; ``probes`` holds the Sophia health scalars
+    (`repro_torch.obs.probes`) when the engine runs with
+    ``ObsConfig.probes``."""
     time: float               # virtual seconds at which it was applied
     version: int              # server model version it produced
     kind: str                 # "round" (sync) | "aggregate"
@@ -388,6 +395,9 @@ class VirtualScheduler:
         # per-dispatch trace contexts (`ObsConfig.trace`): host
         # bookkeeping only, the traced run's state is the untraced one's
         self._trace_on = fed.obs.trace
+        # Sophia health probes per event: sync rounds carry them in
+        # their metrics, the event loop probes the state after each apply
+        self._probes_on = fed.obs.probes
 
     # ------------------------------------------------------------ randomness
     def _group_noise(self, rt, n: int, batch_size: int, drawn,
@@ -471,7 +481,8 @@ class VirtualScheduler:
         idx = torch.tensor(group, dtype=torch.int64, device=engine.device)
 
         def take(x):
-            return None if x is None else x.index_select(0, idx)
+            # gathered rows keep their storage dtype
+            return None if x is None else take_rows(x, idx)
 
         opts = state.get("client_opt") if self._stateful else None
         opts_g = (None if opts is None
@@ -533,17 +544,21 @@ class VirtualScheduler:
                 corr = dn_acc - float(wsum) * packed_now
             agg = agg + repack(corr, rt.spec_dn, rt.spec)
         new_theta = theta + agg
-        state["params"] = (new_theta.to(params.dtype) if packed
-                           else unpack(new_theta, rt.spec))
+        # the engine's server step (FedOpt: Adam / Yogi) on the new model
+        state.update(engine._apply_aggregate_flat(state, new_theta)
+                     if packed else
+                     engine._apply_aggregate(state,
+                                             unpack(new_theta, rt.spec)))
         state["round"] = int(state["round"]) + 1
         idx = torch.tensor(ids, dtype=torch.int64, device=dev)
+        # the arrivals' rows, stored back in the resident dtypes
         if self._stateful and opt_rows is not None:
-            state["client_opt"].m.index_copy_(0, idx, opt_rows.m)
-            state["client_opt"].h.index_copy_(0, idx, opt_rows.h)
+            put_rows_(state["client_opt"].m, idx, opt_rows.m)
+            put_rows_(state["client_opt"].h, idx, opt_rows.h)
         for key, rows in (("comm_ef", ef_rows), (cdown.MODEL_KEY, dnm_rows),
                           (cdown.EF_KEY, dnef_rows)):
             if rows is not None:
-                state[key].index_copy_(0, idx, rows)
+                put_rows_(state[key], idx, rows)
         return state
 
     # ------------------------------------------------------------- helpers
@@ -563,6 +578,17 @@ class VirtualScheduler:
 
     def _weight(self, staleness: int) -> float:
         return float((1.0 + staleness) ** (-self.sched.staleness_power))
+
+    def _event_probes(self, state=None,
+                      metrics=None) -> Optional[Dict[str, float]]:
+        """The Sophia health scalars of one event, None when probing is
+        off: a sync round's from its metrics, an event loop's from the
+        state after the apply."""
+        if not self._probes_on:
+            return None
+        if metrics is None:
+            metrics = self.engine.probe_metrics(state)
+        return {k: float(metrics[k]) for k in PROBE_METRICS}
 
     def _event_ctx(self, ids, dropped=()) -> Dict[str, Any]:
         """Adversarial-fleet fields of one event: the aggregator that
@@ -668,6 +694,7 @@ class VirtualScheduler:
                 cum_downlink_bytes=cum["downlink_bytes"],
                 cum_hessian_uplink_bytes=cum["hessian_uplink_bytes"],
                 cum_hessian_downlink_bytes=cum["hessian_downlink_bytes"],
+                probes=self._event_probes(metrics=metrics),
                 trace_ids=tids,
                 **self._event_ctx([int(i) for i in part]))
             trace.events.append(ev)
@@ -758,9 +785,9 @@ class VirtualScheduler:
             if rows[0] is None:
                 return None
             if isinstance(rows[0], SophiaState):
-                return SophiaState(m=torch.stack([r.m for r in rows]),
-                                   h=torch.stack([r.h for r in rows]))
-            return torch.stack(rows)
+                return SophiaState(m=cat_rows([r.m[None] for r in rows]),
+                                   h=cat_rows([r.h[None] for r in rows]))
+            return cat_rows([r[None] for r in rows])
 
         while version < num_events and inflight:
             i = min(inflight, key=lambda j: (inflight[j].arrival, j))
@@ -801,6 +828,7 @@ class VirtualScheduler:
                 cum_downlink_bytes=cum["downlink_bytes"],
                 cum_hessian_uplink_bytes=cum["hessian_uplink_bytes"],
                 cum_hessian_downlink_bytes=cum["hessian_downlink_bytes"],
+                probes=self._event_probes(state=state),
                 trace_ids=tids,
                 **self._event_ctx(ids, dropped=[
                     i for i, r in zip(ids, recs) if r.dropped]))

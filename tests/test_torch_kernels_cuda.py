@@ -1008,3 +1008,94 @@ def test_biased_fp32_form_every_swept_block_size(card, threads,
             got = getattr(tq, f"{fn}_{kind}")(x, v)
             _bitwise((got,), (plain(x, v),))
         assert sum(tq.F32X4_LAUNCHES.values()) == 2
+
+
+# ------------------------------------- the resident dtype policy's forms
+#: the main path's packed MLP-128 stack: 32 clients of (116, 1024)
+MAIN_STACK = (32, 116, 1024)
+NARROW_MAIN = {  # m, h storage of the narrow phases (theta, g, h_hat fp32)
+    "bf16": (torch.bfloat16, torch.bfloat16),
+    "fp8": (torch.float8_e4m3fn, torch.float8_e5m2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", list(NARROW_MAIN))
+@pytest.mark.parametrize("do_h", [0, 1])
+def test_narrow_sophia_at_the_main_shape_bitwise(card, store, do_h):
+    """The batched Sophia launch of the bf16 and fp8 resident phases, at
+    the main path's shape, in place as the engine runs it: the
+    runtime-dtype form, bitwise its plain version."""
+    xs = _inputs(MAIN_STACK, card, seed=11, overflow=store == "fp8")
+    m_dt, h_dt = NARROW_MAIN[store]
+    ins = [xs[0], xs[1].to(m_dt), xs[2].to(h_dt), xs[3], xs[4]]
+    want = sophia_update_ref(*ins, do_h, lr=LR, **HP)
+    tk.reset_launches()
+    got = tk.sophia_update_batched(*(x.clone() for x in ins[:3]), *ins[3:],
+                                   do_h, LR, inplace=True, **HP)
+    assert tk.LAUNCHES["sophia_update_batched"] == 1
+    assert tk.F32X4_LAUNCHES["sophia_update_batched"] == 0
+    _bitwise(got, want)
+
+
+def _small_fed(**kw):
+    from repro_torch.configs.base import FedConfig
+    return FedConfig(**{**dict(num_clients=4, local_iters=2, tau=2), **kw})
+
+
+def _card_vs_cpu(card, fed, rounds=2):
+    """``rounds`` small rounds of ``fed`` on the card and on the CPU
+    from the same weights, data and GNB noise; returns both states and
+    the losses."""
+    from repro_torch.core.fed import FedEngine
+    from repro_torch.models.small import MLPTask
+    task = MLPTask(hidden=16)
+    init = task.init(torch.Generator().manual_seed(0))
+    rs = np.random.default_rng(1)
+    out = {}
+    for dev in ("cpu", card):
+        eng = FedEngine(task, fed, device=dev)
+        state = eng.pack_state(eng.init_from_params(
+            {k: v.to(dev) for k, v in init.items()}))
+        losses = []
+        for r in range(rounds):
+            rs = np.random.default_rng(10 + r)
+            b = {"x": torch.tensor(rs.standard_normal((4, 8, 28, 28, 1)),
+                                   dtype=torch.float32, device=dev),
+                 "y": torch.tensor(rs.integers(0, 10, (4, 8)), device=dev)}
+            u = rs.uniform(size=(4, fed.local_iters, 8, 10))
+            gum = torch.tensor(-np.log(-np.log(np.maximum(u, 1e-30))),
+                               dtype=torch.float32, device=dev)
+            state, m = eng.round(state, b, gumbel=gum)
+            losses.append(float(m["loss"]))
+        out[str(dev)] = (state, losses)
+    return out["cpu"], out[str(card)]
+
+
+def _close_in_dtype(a, b, rtol=1e-4, atol=1e-5):
+    """fp32 within rtol/atol; a narrow buffer within that or its steps
+    of its dtype (`kernels.ref.band_breach`)."""
+    breach = ref.band_breach(a.cpu(), b.cpu(), rtol=rtol, atol=atol)
+    assert breach is None, breach
+
+
+@pytest.mark.cuda
+def test_bf16_fedadam_round_on_the_card_matches_the_cpu(card):
+    from repro_torch.configs.base import CommConfig
+    (cs, cl), (gs, gl) = _card_vs_cpu(card, _small_fed(
+        optimizer="fedadam", lr=0.02,
+        comm=CommConfig(state_dtype="bfloat16")))
+    np.testing.assert_allclose(gl, cl, rtol=1e-4, atol=1e-5)
+    assert gs["params"].dtype == torch.bfloat16
+    _close_in_dtype(gs["params"], cs["params"])
+    for k in ("m", "v"):
+        assert gs["server_opt"][k].dtype == torch.bfloat16
+        _close_in_dtype(gs["server_opt"][k], cs["server_opt"][k])
+
+
+@pytest.mark.cuda
+def test_done_round_on_the_card_matches_the_cpu(card):
+    (cs, cl), (gs, gl) = _card_vs_cpu(card, _small_fed(
+        optimizer="done", lr=1.0, local_iters=1))
+    np.testing.assert_allclose(gl, cl, rtol=1e-4, atol=1e-5)
+    _close_in_dtype(gs["params"], cs["params"])
