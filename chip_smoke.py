@@ -32,6 +32,16 @@ on copies past the L2).  Every path runs with the launch counts set to 0
 just before it and read just after; the EF uplink, bidir and biased comm
 paths must also have taken the fp32 form of the uplink, broadcast, sign
 and threshold kernels at every launch of those.
+It then trains a federated LM through the trainer's CLI
+(`repro_torch.launch.train.main`): minicpm-2b at its published widths
+(d_model 2304, 36 heads of 64, d_ff 5760, vocab 122,880 padded), the
+depth cut to 2 layers, 4 clients, J=2, tau=2, batch 2, seq 256, for 3
+rounds with a record log and a checkpoint, then resumes from it for 1
+(`lm_train`: exact launch counts, valid records carrying the schema
+fingerprint, a valid chrome trace, the checkpoint restored bitwise, one
+profiled round); holds the reduced LM's rounds on the card against the
+CPU (`lm_small_check`) and times the Sophia kernel at one LM client's
+slice (`time_lm_sophia`).
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
@@ -1789,12 +1799,16 @@ def time_narrow(device, launches):
                     tq.broadcast_roundtrip_batched(sv, st, ef, u, s,
                                                    qmax=127),
                     kref.broadcast_roundtrip_ref(sv, st, ef, u, s, qmax=127))
+    # the kernel writes both outputs in theta's dtype (fp32 here), not
+    # in the replicas'; rows 2 and 5 store theirs in their inputs'
+    # dtypes (m, h in place; the round-trip like its input)
+    outs = [torch.empty_like(st, dtype=sv.dtype) for _ in range(2)]
     t = time_pair("broadcast_roundtrip_batched (bf16 replicas, S=16)",
                   lambda i: tq.broadcast_roundtrip_batched(sv, st, ef, u, s,
                                                            qmax=127),
                   lambda i: kref.broadcast_roundtrip_ref(sv, st, ef, u, s,
                                                          qmax=127),
-                  [sv, st, ef, u, s], [st, ef], QUANT_OPS["broadcast"],
+                  [sv, st, ef, u, s], outs, QUANT_OPS["broadcast"],
                   plain_chunk=10)
     out.append(dict(name="broadcast_roundtrip_batched",
                     form="bf16 replicas",
@@ -2816,21 +2830,273 @@ def time_biased(device):
     return out
 
 
+# ------------------------------------------------------------ LM training
+#: slice 10's path, through the trainer's CLI (`repro_torch.launch.train`):
+#: minicpm-2b at its published widths (d_model 2304, 36 heads of 64, d_ff
+#: 5760, vocab 122,753 padded to 122,880), the depth cut 40 -> 2 layers
+#: (``--layers``); 4 clients, J=2, tau=2, batch 2, seq 256, the arch's
+#: FED overrides (parallel, WSD), fp32 resident state, bf16 parameters
+LM_ARCH, LM_LAYERS = "minicpm-2b", 2
+LM_PARAMS, LM_PACKED = 405_220_608, (395_724, 1024)
+LM_CLIENTS, LM_ITERS, LM_TAU, LM_BATCH, LM_SEQ = 4, 2, 2, 2, 256
+LM_ROUNDS, LM_RESUME_ROUNDS = 3, 1
+#: the LM's card-against-CPU check: minicpm-2b reduced(d_model=128), fp32
+#: parameters, 2 clients, J=2, tau=2, batch 2, seq 32, 2 rounds
+LM_SMALL = dict(clients=2, iters=2, tau=2, batch=2, seq=32, rounds=2)
+
+
+def lm_argv(ckpt_dir, rounds, *extra):
+    return ["--arch", LM_ARCH, "--layers", str(LM_LAYERS),
+            "--rounds", str(rounds), "--clients", str(LM_CLIENTS),
+            "--local-iters", str(LM_ITERS), "--tau", str(LM_TAU),
+            "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+            "--ckpt-dir", str(ckpt_dir), "--seed", str(SEED), *extra]
+
+
+def lm_train(device):
+    """Slice 10's path: ``repro_torch.launch.train.main`` trains
+    minicpm-2b (2 layers, published widths) for `LM_ROUNDS` rounds with
+    ``--obs-log`` (a flush a round) and ``--ckpt-dir``, then resumes from
+    that checkpoint for `LM_RESUME_ROUNDS`.  Gates: exact launch counts
+    of each run, finite losses, every record valid under the port's
+    schema with its fingerprint in the log's and the run manifest's
+    head, the chrome trace of the log valid, the checkpoint restored
+    bitwise the params it saved.  Prints steady seconds per round, peak
+    memory and one profiled round.  Returns the launch counts summed
+    over both runs and the row-2 device time of the profiled round."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    card = card_info()
+    launches = {name: 0 for name in REPLACES}
+    with tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
+        tmp = Path(tmp)
+        log = tmp / "run.jsonl"
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = train.main(lm_argv(tmp / "ckpt", LM_ROUNDS, "--obs-log",
+                                 str(log), "--obs-flush-every", "1"))
+        got = launch_counts()
+        want = expect(sophia_update_batched=LM_ROUNDS * LM_ITERS)
+        print(f"lm_train: launches {got}")
+        if got != want:
+            raise SystemExit(f"lm_train: launches {got}, want {want}")
+        for k, v in got.items():
+            launches[k] += v
+        peak = torch.cuda.max_memory_allocated()
+        engine, state = res["engine"], res["state"]
+        spec = engine.runtime_for(state["params"]).spec
+        packed = tuple(state["client_opt"].m.shape[1:])
+        if spec.total != LM_PARAMS or packed != LM_PACKED:
+            raise SystemExit(f"lm_train: {spec.total} parameters packed "
+                             f"as {packed}")
+        losses, secs = res["losses"], res["seconds"]
+        if len(losses) != LM_ROUNDS or not all(np.isfinite(losses)):
+            raise SystemExit(f"lm_train: losses {losses}")
+        steady = sum(secs[1:]) / len(secs[1:])
+        print(f"lm_train: minicpm-2b x {LM_LAYERS} layers, {LM_PARAMS} "
+              f"parameters, {LM_CLIENTS} clients, J={LM_ITERS}: losses "
+              f"{losses}; seconds per round {secs}; steady seconds per "
+              f"round (rounds 1-{LM_ROUNDS - 1}) {steady}; peak device "
+              f"memory {peak} bytes; {card}")
+
+        recs = obs.read_records(str(log))
+        for rec in recs:
+            obs.validate_record(rec)
+        head = recs[0]
+        run_manifest = json.loads(Path(str(log) + ".manifest.json")
+                                  .read_text())
+        if (head.get("record") != "manifest"
+                or head["schema_sha256"] != obs.fingerprint()
+                or run_manifest["schema_sha256"] != obs.fingerprint()):
+            raise SystemExit("lm_train: the log does not carry the "
+                             "schema fingerprint")
+        rounds = [r for r in recs if r["record"] == "round"]
+        if ([r["round"] for r in rounds] != list(range(LM_ROUNDS))
+                or [r["loss"] for r in rounds] != losses):
+            raise SystemExit(f"lm_train: round records {rounds}")
+        errors = obs.validate_chrome_trace(obs.chrome_trace(recs))
+        if errors:
+            raise SystemExit(f"lm_train: chrome trace invalid: {errors}")
+        print(f"lm_train: {len(recs)} records valid (schema "
+              f"{head['schema_sha256'][:12]}), chrome trace valid")
+
+        saved = tflat.unpack(state["params"], spec)
+        manifest = ckpt.load_manifest(str(tmp / "ckpt"))
+        restored = ckpt.restore(str(tmp / "ckpt"), saved)
+        for k, v in saved.items():
+            if not torch.equal(bits(restored[k]), bits(v)):
+                raise SystemExit(f"lm_train: checkpoint leaf {k} is not "
+                                 "bitwise the saved params")
+        if (manifest["step"] != LM_ROUNDS
+                or manifest["extra"]["wire"]
+                != engine.wire_headers(state["params"])):
+            raise SystemExit(f"lm_train: checkpoint manifest {manifest}")
+        print(f"lm_train: checkpoint of {len(saved)} leaves restored "
+              "bitwise")
+        del restored, saved
+
+        cfg = engine.task.cfg
+        batches = syn.make_token_batch(gen(device, SEED + 7), LM_CLIENTS,
+                                       LM_BATCH, LM_SEQ, cfg.vocab_size,
+                                       device=device)
+        by_name = profile_call(
+            lambda: engine.round(state, batches,
+                                 generator=gen(device, SEED + 8)), steady,
+            top=16)
+        row2 = [(t, n) for name, (t, n) in by_name.items()
+                if "sophia" in name.lower()]
+        row2_us = sum(t for t, _ in row2)
+        print(f"lm_train: profiled round: row 2 (sophia_update_batched) "
+              f"{sum(n for _, n in row2)} launches, {row2_us} us of device "
+              f"time; {card}")
+        del res, engine, state, batches
+        torch.cuda.empty_cache()
+
+        reset_launches()
+        res = train.main(lm_argv(tmp / "ckpt", LM_RESUME_ROUNDS,
+                                 "--resume"))
+        got = launch_counts()
+        want = expect(sophia_update_batched=LM_RESUME_ROUNDS * LM_ITERS)
+        print(f"lm_train resume: launches {got}, losses {res['losses']}")
+        if got != want or not all(np.isfinite(res["losses"])):
+            raise SystemExit(f"lm_train resume: launches {got}, want "
+                             f"{want}; losses {res['losses']}")
+        for k, v in got.items():
+            launches[k] += v
+        del res
+        torch.cuda.empty_cache()
+    return launches, row2_us
+
+
+def lm_small_check(device):
+    """The LM round on the card against the CPU: minicpm-2b
+    reduced(d_model=128) at fp32, the same weights, batches and GNB
+    noise, `LM_SMALL` rounds; loss, params, m and h within rtol 1e-4 /
+    atol 1e-5.  Returns the card's launch counts."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.models.transformer import LMTask
+    sm = LM_SMALL
+    cfg = dataclasses.replace(
+        get_model_config(LM_ARCH).reduced(d_model=128), dtype="float32")
+    task = LMTask(cfg)
+    fed = FedConfig(num_clients=sm["clients"], local_iters=sm["iters"],
+                    tau=sm["tau"], lr=1e-3, schedule="wsd",
+                    total_rounds=sm["rounds"])
+    params = task.init(gen("cpu", SEED + 11), "cpu")
+    out = {}
+    for dev in ("cpu", device):
+        reset_launches()
+        eng = FedEngine(task, fed, device=dev)
+        st = eng.pack_state(eng.init_from_params(
+            {k: v.to(dev) for k, v in params.items()}))
+        losses = []
+        for r in range(sm["rounds"]):
+            b = syn.make_token_batch(gen("cpu", SEED + 20 + r),
+                                     sm["clients"], sm["batch"], sm["seq"],
+                                     cfg.vocab_size, device=dev)
+            g = gumbel_noise(gen("cpu", SEED + 30 + r),
+                             (sm["clients"], sm["iters"], sm["batch"],
+                              sm["seq"], cfg.vocab_padded))
+            st, m = eng.round(st, b, gumbel=g)
+            losses.append(float(m["loss"]))
+        out[dev if dev == "cpu" else "card"] = (st, losses)
+    got = launch_counts()
+    want = expect(sophia_update_batched=sm["rounds"] * sm["iters"])
+    if got != want:
+        raise SystemExit(f"lm small check: launches {got}, want {want}")
+    (cst, closs), (gst, gloss) = out["cpu"], out["card"]
+    np.testing.assert_allclose(gloss, closs, rtol=SMALL_RTOL,
+                               atol=SMALL_ATOL)
+    for name, a, b in (("params", cst["params"], gst["params"]),
+                       ("m", cst["client_opt"].m, gst["client_opt"].m),
+                       ("h", cst["client_opt"].h, gst["client_opt"].h)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                   rtol=SMALL_RTOL, atol=SMALL_ATOL,
+                                   err_msg=f"lm small check: {name}")
+    print(f"lm small check (minicpm-2b reduced, fp32, card vs CPU): "
+          f"losses {gloss} vs {closs}; params, m, h within rtol "
+          f"{SMALL_RTOL} / atol {SMALL_ATOL}")
+    return got
+
+
+def time_lm_sophia(device):
+    """Row 2 at the LM's shape: one client's slice ``(1, 395724, 1024)``
+    of minicpm-2b x 2 layers, fp32, bitwise its plain version, timed
+    beside it (`time_pair`)."""
+    R, C = LM_PACKED
+    ins = sophia_inputs((1, R, C), device, SEED + 98)
+    lr = torch.tensor(LR)
+    err = same_bits("lm slice", "sophia_update_batched",
+                    tk.sophia_update_batched(*ins, 1, lr, **HP),
+                    sophia_update_ref(*ins, 1, lr=lr, **HP))
+    t = time_pair("sophia_update_batched (LM slice: one client of "
+                  "minicpm-2b x 2 layers)",
+                  lambda i: tk.sophia_update_batched(*ins, 1, lr, **HP),
+                  lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
+                  ins, ins[:3], SOPHIA_OPS, plain_chunk=10)
+    print(f"lm slice row 2: {t['ms']} ms against a {t['bound_ms']} ms "
+          f"bound ({t['bound_ms'] / t['ms']} of it), plain {t['plain_ms']} "
+          f"ms, max |err| {err}; {card_info()}")
+    del ins
+    torch.cuda.empty_cache()
+    return t
+
+
 def profile_round(engine, state, data, device, steady_s):
     """One more steady round of the main path under `torch.profiler`:
     device time by kernel, and the device's busy share of the
     unprofiled steady round time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     x, y, train_idx = data
     batches = syn.client_batches(gen(device, SEED + 200), x, y, train_idx,
                                  BATCH)
     noise = gen(device, SEED + 2000)
+    return profile_call(lambda: engine.round(state, batches,
+                                             generator=noise), steady_s)
+
+
+#: device-activity classes of a profiled round, by words of the name
+ACTIVITY_CLASSES = (("Sophia kernel", ("sophia",)),
+                    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma",
+                              "sm90_", "cublas")),
+                    ("copy / cast", ("copy",)),
+                    ("reduction", ("reduce",)),
+                    ("index / gather / scatter", ("index", "gather",
+                                                  "scatter")),
+                    ("elementwise", ("elementwise",)))
+
+
+def activity_class(name: str) -> str:
+    low = name.lower()
+    for label, words in ACTIVITY_CLASSES:
+        if any(w in low for w in words):
+            return label
+    return "other"
+
+
+def activity_op(name: str) -> str:
+    """The op inside a templated PyTorch kernel's name (its functor or
+    kernel function), where the name's head is only the template."""
+    import re
+    ops_ = re.findall(r"(\w+(?:Functor|_kernel_cuda|_kernel_impl|Ops))\b",
+                      name)
+    return ", ".join(dict.fromkeys(o for o in ops_
+                                   if "gpu_kernel_impl" not in o)) or "-"
+
+
+def profile_call(run, steady_s, top=8):
+    """``run()`` under `torch.profiler`: device time by activity name
+    (returned, name -> (us, count)), and the device's busy share of the
+    unprofiled ``steady_s``; the ``top`` activities and the time of each
+    class (`ACTIVITY_CLASSES`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.round(state, batches, generator=noise)
+        run()
         sync()
         wall = time.perf_counter() - t0
     by_name: dict = {}
@@ -2847,14 +3113,23 @@ def profile_round(engine, state, data, device, steady_s):
           f"busy share of the unprofiled steady round "
           f"{busy_us / (steady_s * 1e6)}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    for name, (t, n) in ranked[:8]:
-        print(f"  {t:10.1f} us  {n:5d}x  {name[:90]}")
+    for name, (t, n) in ranked[:top]:
+        print(f"  {t:10.1f} us  {n:5d}x  {name[:90]}  [{activity_op(name)}]")
+    classes: dict = {}
+    for name, (t, n) in by_name.items():
+        c = activity_class(name)
+        ct, cn = classes.get(c, (0.0, 0))
+        classes[c] = (ct + t, cn + n)
+    print("  by class: " + "; ".join(
+        f"{c} {t} us over {n} ({t / busy_us})" for c, (t, n) in
+        sorted(classes.items(), key=lambda kv: -kv[1][0])))
     # the compressors' kernels and top-k's selection, wherever they rank
     comm = [(rank, name, t, n) for rank, (name, (t, n)) in enumerate(ranked)
             if any(w in name.lower() for w in COMM_KERNEL_WORDS)]
     for rank, name, t, n in comm:
         print(f"  comm stage, rank {rank + 1}: {t:10.1f} us  {n:5d}x  "
               f"{name[:80]}")
+    return by_name
 
 
 def main() -> None:
@@ -2896,8 +3171,12 @@ def main() -> None:
     small_settings_check(device)
     launches, steady, narrow = main_path(device)
     print(f"steady seconds per round by path: {json.dumps(steady)}")
+    for path_launches in (lm_small_check(device), lm_train(device)[0]):
+        for k, v in path_launches.items():
+            launches[k] += v
     timing = time_kernels(device)
     narrow_kernels = time_narrow(device, narrow)
+    time_lm_sophia(device)
 
     kernels = []
     for name in REPLACES:

@@ -273,9 +273,16 @@ def pack(tree: Dict[str, torch.Tensor], spec: FlatSpec,
     _check_tree(tree)
     first = tree[spec.keys[0]]
     lead = tuple(first.shape[:first.ndim - len(spec.shapes[0])])
-    parts = [tree[k].reshape(lead + (-1,)).to(torch.float32)
-             for k in spec.keys]
-    v = F.pad(torch.cat(parts, dim=-1), (0, spec.padded - spec.total))
+    # each leaf cast straight into its place in one fp32 buffer: no
+    # upcast copies, no concatenation, no padded copy (an LM's buffers
+    # run to gigabytes); the values are those of cat-then-pad
+    v = torch.empty(lead + (spec.padded,), dtype=torch.float32,
+                    device=first.device)
+    off = 0
+    for k, sz in zip(spec.keys, spec.sizes):
+        v[..., off:off + sz].copy_(tree[k].reshape(lead + (-1,)))
+        off += sz
+    v[..., spec.total:].zero_()
     return store_as(v.reshape(lead + (spec.rows, spec.cols)), dtype)
 
 

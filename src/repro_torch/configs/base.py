@@ -1,14 +1,148 @@
-"""Federated runtime config dataclasses: the port's own copy of
-`FedConfig` and its nested `CommConfig`, `SchedConfig`, `RobustConfig`
-and `ObsConfig`, with the field names and defaults of the JAX
-package's ``configs/base.py``.  `repro_torch.core.fed.FedEngine` runs
-every setting the JAX engine runs and raises `ValueError` for unknown
-ones.
+"""Config dataclasses: the port's own copy of the model-zoo configs
+(`ModelConfig`, `MoEConfig`, `MLAConfig`) and of `FedConfig` with its
+nested `CommConfig`, `SchedConfig`, `RobustConfig` and `ObsConfig`,
+with the field names and defaults of the JAX package's
+``configs/base.py``.  `repro_torch.core.fed.FedEngine` runs every
+setting the JAX engine runs and raises `ValueError` for unknown ones;
+`repro_torch.models.transformer` runs the dense decoder members of the
+model zoo and raises `NotImplementedError` for the other families.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+VOCAB_PAD_MULTIPLE = 256
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    # layer stacking: pattern of block kinds, tiled over num_layers.
+    #   attn | local | global | rec (RG-LRU) | m (mLSTM) | s (sLSTM)
+    block_pattern: Tuple[str, ...] = ("attn",)
+    # attention options
+    causal: bool = True
+    qk_norm: bool = False
+    softcap_attn: Optional[float] = None
+    softcap_final: Optional[float] = None
+    window: Optional[int] = None      # sliding-window size for 'local' blocks
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0           # chatglm applies rotary to half the dims
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl M-RoPE
+    mla: Optional[MLAConfig] = None
+    # ffn
+    ffn_kind: str = "swiglu"          # swiglu | geglu | gelu
+    moe: Optional[MoEConfig] = None
+    # recurrent blocks
+    lru_width: int = 0                # RG-LRU recurrence width (0 -> d_model)
+    conv_width: int = 4               # temporal conv in recurrent blocks
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
+    # perf knobs (§Perf hillclimb; defaults = paper-faithful baseline)
+    pad_attn_heads: int = 0           # pad q-heads to this count with zero
+    # wq cols / wo rows (mathematically exact — zero heads contribute 0 and
+    # receive 0 gradient). Aligns num_heads to the model axis so attention
+    # shards on heads instead of splitting head_dim (which turns every
+    # score einsum into a partial-sum all-reduce).
+    slstm_unroll: int = 1             # scan unroll: weights read once/U steps
+    attn_chunk_threshold: int = 2048  # seq len above which attention uses
+    # the online-softmax KV-chunked path (0 = always chunked; big = dense)
+    attn_kv_chunk: int = 1024         # KV tile for the chunked path
+    train_remat: bool = True          # per-block activation checkpointing
+    scan_compute_dtype: str = "float32"   # mLSTM chunk-scan operand dtype:
+    #   "bfloat16" keeps q/k/v bf16 across the sharding boundary (halves the
+    #   per-chunk model-axis all-gather bytes); accumulation stays fp32.
+    # misc
+    residual_scale: float = 1.0       # minicpm depth scaling
+    scale_emb: float = 1.0
+    tie_embeddings: bool = True
+    post_norm: bool = False           # gemma2 post-block norms
+    dtype: str = "float32"
+    # serving: replace 'global' with 'local' blocks for long-context mode
+    long_mode_swa_only: bool = False
+    # frontend stubs (audio/vlm): inputs are embeddings, not token ids
+    embedding_inputs: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def vocab_padded(self) -> int:
+        m = VOCAB_PAD_MULTIPLE
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def pattern_reps(self) -> int:
+        return self.num_layers // len(self.block_pattern)
+
+    @property
+    def pattern_remainder(self) -> Tuple[str, ...]:
+        rem = self.num_layers % len(self.block_pattern)
+        return tuple(self.block_pattern[:rem])
+
+    def reduced(self, num_layers: int = 2, d_model: int = 256,
+                max_experts: int = 4) -> "ModelConfig":
+        """Smoke-test variant: same family/features, tiny dims."""
+        num_layers = max(num_layers, len(self.block_pattern))
+        num_layers = (num_layers // len(self.block_pattern)) * len(self.block_pattern)
+        heads = min(self.num_heads, 4)
+        kv = min(self.num_kv_heads, heads)
+        if heads % kv:
+            kv = 1
+        changes = dict(
+            num_layers=num_layers, d_model=d_model, num_heads=heads,
+            num_kv_heads=kv, head_dim=d_model // heads,
+            d_ff=max(2 * d_model, 64), vocab_size=min(self.vocab_size, 512),
+            lru_width=min(self.lru_width, d_model) if self.lru_width else 0,
+            window=min(self.window, 64) if self.window else None,
+        )
+        if self.moe is not None:
+            changes["moe"] = dataclasses.replace(
+                self.moe, num_experts=min(self.moe.num_experts, max_experts),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=max(d_model // 2, 32),
+                num_shared=min(self.moe.num_shared, 1),
+                d_ff_shared=max(d_model // 2, 32) if self.moe.num_shared else 0)
+        if self.mla is not None:
+            changes["mla"] = MLAConfig(kv_lora_rank=64, qk_nope_head_dim=32,
+                                       qk_rope_head_dim=16, v_head_dim=32)
+            changes["head_dim"] = 32
+        if self.mrope_sections is not None:
+            hd = changes["head_dim"]
+            changes["mrope_sections"] = (hd // 2 - 2 * (hd // 8), hd // 8, hd // 8)
+        return dataclasses.replace(self, **changes)
+
 
 #: The named wire streams of a federated round.  Every stream shares the
 #: flattened coordinate order of `repro_torch.comm.flat` and gets its own
@@ -146,14 +280,23 @@ class RobustConfig:
     #                                   client's update is delivered
     seed: int = 0                     # fault-injection salt
 
+    @property
+    def adversarial(self) -> bool:
+        """Any fault injection active (attacks, label noise or churn)."""
+        return ((self.attack != "none" and self.attack_fraction > 0.0)
+                or self.label_noise_fraction > 0.0
+                or self.dropout_prob > 0.0)
+
 
 @dataclass(frozen=True)
 class ObsConfig:
     """Structured telemetry: ``trace`` (per-dispatch trace contexts of
-    the scheduler) and ``probes`` (the Sophia health scalars of
+    the scheduler), ``probes`` (the Sophia health scalars of
     `repro_torch.obs.probes` in every round's metrics and event
-    record).  The record sinks and buffers (``flush_every``,
-    ``ring_capacity``) are not ported yet."""
+    record), ``flush_every`` (rounds per `obs.MetricsAccumulator`
+    flush, the one host copy of a window's metrics in the trainer's
+    obs loop) and ``ring_capacity`` (records `obs.RunRecorder` keeps
+    in memory)."""
     probes: bool = False
     trace: bool = False
     flush_every: int = 10

@@ -12,6 +12,14 @@ resident stacks — the uplink EF residuals ``comm_ef`` and the downlink
 replicas and residuals ``comm_dn_model``, ``comm_dn_ef`` — are carried
 as they are, where present.
 
+Parameter trees cross in both shapes: the JAX package's nested dicts
+(the LM zoo's ``{"blocks_0": {"mixer": {"wq": ...}}}``) come in as the
+port's flat dict keyed by ``/``-joined paths (``"blocks_0/mixer/wq"``,
+the keys of the JAX package's checkpoints), and go back out nested
+(`nest`).  Sorted, the joined keys are the order
+`jax.tree_util.tree_flatten` gives the nested dicts, since ``/`` sorts
+below every character of a key, so both packages pack the same buffer.
+
 Narrow resident state (bf16, e4m3, e5m2: `CommConfig.state_dtype` and
 its per-buffer overrides) crosses as numpy arrays of the ``ml_dtypes``
 types the JAX package uses, bit for bit through a same-width integer
@@ -70,24 +78,52 @@ def _array(t: torch.Tensor) -> np.ndarray:
                   else torch.uint8).numpy().view(dt)
 
 
+def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested dict of leaves as one flat dict keyed by ``/``-joined
+    paths; a flat dict comes back as it is."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `flatten`: ``/``-joined keys as nested dicts."""
+    out: Dict[str, Any] = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
 def _tree_from(tree, dev):
-    return ({k: _tensor(v, dev) for k, v in tree.items()}
+    return ({k: _tensor(v, dev) for k, v in flatten(tree).items()}
             if isinstance(tree, dict) else _tensor(tree, dev))
 
 
 def _tree_to(tree):
-    return ({k: _array(v) for k, v in tree.items()}
+    return (nest({k: _array(v) for k, v in tree.items()})
             if isinstance(tree, dict) else _array(tree))
 
 
 def params_from_numpy(params: Dict[str, Any],
                       device=None) -> Dict[str, torch.Tensor]:
+    """Numpy leaves (a flat or nested dict) -> the port's flat dict."""
     dev = resolve_device(device)
-    return {k: _tensor(v, dev) for k, v in params.items()}
+    return {k: _tensor(v, dev) for k, v in flatten(params).items()}
 
 
-def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: _array(v) for k, v in params.items()}
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's flat dict -> numpy leaves, nested as the JAX package
+    nests them."""
+    return _tree_to(params)
 
 
 def state_from_numpy(state: Dict[str, Any], device=None) -> Dict[str, Any]:

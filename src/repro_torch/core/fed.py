@@ -92,7 +92,8 @@ from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, cat_rows,
                                    flat_spec, pack, put_rows_, repack,
                                    take_rows, unpack, with_cols, zeros)
 from repro_torch.configs.base import COMM_STREAMS, FedConfig
-from repro_torch.core.gnb import accumulate, gnb_estimate, microbatch_slices
+from repro_torch.core.gnb import (accumulate, gnb_estimate, labels_of,
+                                  microbatch_slices)
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
 from repro_torch.kernels.ref import sign, store_as
@@ -289,6 +290,35 @@ class FedEngine:
                 comm, rt.spec_dn, repack(theta, spec, rt.spec_dn), C, dt))
         return state
 
+    def restore_params(self, state, params) -> Dict[str, Any]:
+        """Swap restored params into ``state`` (the JAX package's
+        ``FedEngine.restore_params``): the EF residuals restart at zero
+        and the downlink replicas (and their residuals) re-sync to the
+        restored model, since deltas against the old model would be
+        garbage.  ``params``: a params dict (packed in ``state_dtype``
+        when the state keeps its params packed), or a packed ``(rows,
+        cols)`` buffer of the state's layout.  The Sophia EMAs are
+        kept."""
+        if (self.params_packed(state["params"])
+                and not self.params_packed(params)):
+            params = pack(params, self.spec_for(params), self.state_dtype)
+        state = {**state, "params": params}
+        rt = self.runtime_for(params)
+        if "comm_ef" in state:
+            ef = state["comm_ef"]
+            state["comm_ef"] = zeros(rt.spec, ef.shape[:1], ef.dtype,
+                                     device=ef.device)
+        comm = self.fed.comm
+        if comm.downlink_enabled:
+            dt = self.state_dtype
+            theta = (store_as(params.to(torch.float32), dt)
+                     if self.params_packed(params)
+                     else pack(params, rt.spec, dt))
+            state.update(downlink.init_state(
+                comm, rt.spec_dn, repack(theta, rt.spec, rt.spec_dn),
+                self.fed.num_clients, dt))
+        return state
+
     # ------------------------------------------- packed-resident boundary
     def pack_state(self, state) -> Dict[str, Any]:
         """Keep ``state["params"]`` (and the FedOpt server m/v) packed
@@ -372,9 +402,11 @@ class FedEngine:
 
         Random inputs come from ``generator`` (drawn on the device) or are
         injected:
-          * ``gumbel``: the GNB noise, ``(C, J, B, K)`` for
+          * ``gumbel``: the GNB noise, ``(C, J) + shape`` for
             ``hessian_every_unit="step"`` (index j is local step j),
-            ``(C, 1, B, K)`` for ``"round"``;
+            ``(C, 1) + shape`` for ``"round"``, where ``shape`` is one
+            client's ``task.gumbel_shape`` (``(B, K)`` for the image
+            tasks, ``(B, S, Vp)`` for an LM);
           * ``comm_noise``: ``"participants"``, the S sorted client ids
             (needed when S < C); per quantized stream its U[0, 1) noise
             by client id, ``"uplink"`` ``(C, rows, cols)``,
@@ -394,9 +426,10 @@ class FedEngine:
         round_idx = int(state["round"])
         lr = lr_at_round(fed, round_idx)
         C = fed.num_clients
-        if batches["y"].shape[0] != C:
-            raise ValueError(f"batches carry {batches['y'].shape[0]} "
-                             f"clients, the config {C}")
+        n_batch = int(labels_of(batches).shape[0])
+        if n_batch != C:
+            raise ValueError(f"batches carry {n_batch} clients, the "
+                             f"config {C}")
         rt = self.runtime_for(state["params"])
         if self.uses_direct_path():
             noise = self._gumbel_source(batches, generator, gumbel, None)
@@ -441,11 +474,10 @@ class FedEngine:
         ``ids``: the participants' client ids, None for all C."""
         fed = self.fed
         C = fed.num_clients
-        B = int(batches["y"].shape[1])
-        K = self.task.num_classes
+        shape = tuple(self.task.gumbel_shape(batches))
         if gumbel is not None:
             draws = 1 if fed.hessian_every_unit == "round" else fed.local_iters
-            want = (C, draws, B, K)
+            want = (C, draws) + shape
             if tuple(gumbel.shape) != want:
                 raise ValueError(f"gumbel noise has shape "
                                  f"{tuple(gumbel.shape)}, want {want}")
@@ -460,7 +492,7 @@ class FedEngine:
 
         def draw(clients, j):
             lead = (n,) if isinstance(clients, slice) else ()
-            return gumbel_noise(generator, lead + (B, K), self.device)
+            return gumbel_noise(generator, lead + shape, self.device)
         return draw
 
     def _participants(self, generator, comm_noise) -> Optional[torch.Tensor]:
@@ -820,7 +852,7 @@ class FedEngine:
         as chunks of that many clients, then one tail
         (`_comm_client_step_chunked`)."""
         chunk = self.fed.sched.dispatch_chunk
-        if 0 < chunk < int(batches["y"].shape[0]):
+        if 0 < chunk < int(labels_of(batches).shape[0]):
             return self._comm_client_step_chunked(
                 rt, theta, theta_dn, round_idx, lr, opts, efs, dnms, dnefs,
                 batches, noise, chunk)
@@ -856,7 +888,7 @@ class FedEngine:
         generator's stream is consumed as without chunking), and each
         chunk reads its rows.  ``opts`` is updated in place through
         views of its rows."""
-        n = int(batches["y"].shape[0])
+        n = int(labels_of(batches).shape[0])
         gumbel: Dict[int, torch.Tensor] = {}
         uniform: Dict[str, Optional[torch.Tensor]] = {}
 
@@ -927,7 +959,7 @@ class FedEngine:
         stack (downlink replicas), never written; ``noise(clients,
         j)``."""
         fed = self.fed
-        N = int(batches["y"].shape[0])
+        N = int(labels_of(batches).shape[0])
         if fed.optimizer == "fed_sophia":
             if opts is None:   # stateless: fresh EMAs each round
                 opts = SophiaState(
@@ -1049,7 +1081,7 @@ class FedEngine:
 
     def _local_sgd_flat_batched(self, spec, theta, batches, lr):
         """`_local_sgd_flat` for N clients at once."""
-        t = self._cohort_start(theta, int(batches["y"].shape[0]))
+        t = self._cohort_start(theta, int(labels_of(batches).shape[0]))
         return self._local_sgd_flat(spec, t, batches, lr)
 
     # ------------------------------------------------------- DONE (local)

@@ -40,15 +40,29 @@ def gnb_estimate(task, params: Dict[str, torch.Tensor], batch,
     return {k: B * g * g for k, g in zip(keys, g_hat)}
 
 
+def labels_of(batch) -> torch.Tensor:
+    """A batch's labels: ``y`` ``(*lead, B)`` of the image tasks, or an
+    LM's ``labels`` ``(*lead, B, S)``."""
+    return batch["y"] if "y" in batch else batch["labels"]
+
+
+def batch_axis(batch) -> int:
+    """The position of the batch axis B in every leaf of ``batch``
+    (after its leading client axes)."""
+    if "y" in batch:
+        return batch["y"].ndim - 1
+    return batch["labels"].ndim - 2
+
+
 def microbatch_slices(batch, n: int):
-    """The ``n`` consecutive equal slices of ``batch``'s batch axis (the
-    last axis of ``batch["y"]``; every leaf has it at that position), as
-    the JAX engine's reshape to ``(n, B / n)`` lays them out; ``[batch]``
+    """The ``n`` consecutive equal slices of ``batch``'s batch axis
+    (`batch_axis`; every leaf has it at that position), as the JAX
+    engine's reshape to ``(n, B / n)`` lays them out; ``[batch]``
     itself for n <= 1."""
     if n <= 1:
         return [batch]
-    axis = batch["y"].ndim - 1
-    B = int(batch["y"].shape[axis])
+    axis = batch_axis(batch)
+    B = int(labels_of(batch).shape[axis])
     if B % n:
         raise ValueError(f"a batch of {B} does not split into {n} "
                          "micro-batches")

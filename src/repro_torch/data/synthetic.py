@@ -1,5 +1,6 @@
 """Offline synthetic datasets: seeded class-conditional images of MNIST
-shape (28x28x1, 10 classes) and the non-IID Dirichlet partitioner.
+shape (28x28x1, 10 classes), the non-IID Dirichlet partitioner, and the
+Markov token streams of the LM zoo (`make_token_batch`).
 
 The values a `torch.Generator` draws differ from the JAX package's;
 shapes, cardinality and semantics are the same.  `dirichlet_partition`
@@ -86,3 +87,29 @@ def client_batches(generator: torch.Generator, x: torch.Tensor,
     idx = torch.gather(torch.as_tensor(part, device=x.device).long(), 1,
                        cols)
     return {"x": x[idx], "y": y[idx]}
+
+
+# --------------------------------------------------------------------------
+# synthetic token streams for the LM-family architectures
+# --------------------------------------------------------------------------
+
+def make_token_batch(generator: torch.Generator, num_clients: int,
+                     batch: int, seq_len: int, vocab_size: int,
+                     device=None) -> dict:
+    """Markov-ish token stream, drawn on the generator's device: y_t
+    depends on y_{t-1} through a seeded permutation, resampled
+    uniformly with probability 0.15 — learnable structure for the LM
+    loss.  ``tokens`` and ``labels`` (the stream shifted by one,
+    wrapping) are int64 ``(C, B, S)``."""
+    gen, dev = generator, generator.device
+    perm = torch.randperm(vocab_size, generator=gen, device=dev)
+    shape = (num_clients, batch)
+    toks = [torch.randint(0, vocab_size, shape, generator=gen, device=dev)]
+    for _ in range(1, seq_len):
+        flip = torch.rand(shape, generator=gen, device=dev) < 0.15
+        rnd = torch.randint(0, vocab_size, shape, generator=gen, device=dev)
+        toks.append(torch.where(flip, rnd, perm[toks[-1]]))
+    tokens = torch.stack(toks, dim=-1)                 # (C, B, S)
+    labels = torch.cat([tokens[..., 1:], tokens[..., :1]], dim=-1)
+    dev = device or dev
+    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}

@@ -19,17 +19,11 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import dense_init
+
 NUM_CLASSES = 10
 
 Params = Dict[str, torch.Tensor]
-
-
-def dense_init(generator: torch.Generator, d_in: int,
-               d_out: int) -> torch.Tensor:
-    """N(0, 1/d_in) weights, as the JAX package's ``dense_init``."""
-    scale = 1.0 / math.sqrt(d_in)
-    return torch.randn(d_in, d_out, generator=generator,
-                       device=generator.device) * scale
 
 
 def _ce(logits, labels):
@@ -69,6 +63,10 @@ class _Task:
 
     def gnb_batch_size(self, batch) -> int:
         return int(batch["y"].shape[-1])
+
+    def gumbel_shape(self, batch) -> Tuple[int, ...]:
+        """One client's GNB noise shape, ``(B, K)``."""
+        return (int(batch["y"].shape[-1]), self.num_classes)
 
 
 class MLPTask(_Task):

@@ -1,0 +1,254 @@
+"""The decoder stack of the LM zoo, the dense members: the port of the
+JAX package's ``models/transformer.py`` for configs whose every block
+is an ``attn`` block with a dense FFN (minicpm-2b, chatglm3-6b).
+
+Parameters are the flat ``/``-keyed dict of `repro_torch.models.layers`:
+``embed``, ``final_norm``, ``lm_head`` (untied configs), and the blocks
+of block-pattern position ``pi`` stacked on a leading layer axis under
+``blocks_{pi}/...`` (``blocks_0/mixer/wq`` is ``(L, D, H*hd)``), as the
+JAX package stacks them for ``lax.scan``.  `forward` loops over that
+axis where JAX scans.  Every function also takes parameters with a
+leading client axis ``(N, ...)`` (batch leaves ``(N, B, S)``): the loss
+then comes back per client, shape ``(N,)``.
+
+Every other family or feature raises `NotImplementedError` naming
+ROADMAP queue 1 (g): MLA, MoE, the recurrent mixers (rec / m / s), the
+local and global attention kinds, post-norms, logit softcaps, qk-norm,
+M-RoPE and embedding inputs.
+
+GNB label sampling goes through the RNG seam: ``sampled_loss`` takes
+gumbel noise of the logits' shape and samples ``argmax(logits +
+gumbel)`` with the padded vocab masked, which is how
+``jax.random.categorical`` samples, so the tests can inject the JAX
+package's own draws.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, torch.Tensor]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: ROADMAP queue 1 (g) "
+        "(the port runs the dense attn-block decoders)")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` for a family or feature outside the
+    dense decoder this module runs."""
+    if cfg.mla is not None:
+        raise _not_ported(f"{cfg.name}: MLA attention")
+    if cfg.moe is not None:
+        raise _not_ported(f"{cfg.name}: the MoE FFN")
+    for kind in cfg.block_pattern:
+        if kind in ("rec", "m", "s"):
+            raise _not_ported(f"{cfg.name}: the recurrent mixer {kind!r}")
+        if kind != "attn":
+            raise _not_ported(f"{cfg.name}: the {kind!r} attention kind")
+    for field, what in (("post_norm", "post-block norms"),
+                        ("softcap_attn", "attention logit softcaps"),
+                        ("softcap_final", "final logit softcaps"),
+                        ("qk_norm", "qk-norm"),
+                        ("mrope_sections", "M-RoPE"),
+                        ("embedding_inputs", "embedding inputs"),
+                        ("long_mode_swa_only", "long-context SWA mode")):
+        if getattr(cfg, field):
+            raise _not_ported(f"{cfg.name}: {what}")
+    if cfg.d_ff <= 0:
+        raise _not_ported(f"{cfg.name}: a block without an FFN")
+
+
+# --------------------------------------------------------------------------
+# single block init / apply
+# --------------------------------------------------------------------------
+
+def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
+               dtype: torch.dtype) -> Params:
+    dev = generator.device
+    p: Params = {"ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev)}
+    p.update(L.prefixed("mixer", L.init_attention(generator, cfg, dtype)))
+    p["ln2"] = torch.ones(cfg.d_model, dtype=dtype, device=dev)
+    p.update(L.prefixed("ffn", L.init_ffn(generator, cfg.d_model, cfg.d_ff,
+                                          cfg.ffn_kind, dtype)))
+    return p
+
+
+def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln1"])
+    mix = L.attention_apply(L.subtree(p, "mixer"), cfg, h, positions,
+                            kind=kind)
+    x = x + cfg.residual_scale * mix
+    h = L.rms_norm(x, p["ln2"])
+    f = L.ffn_apply(L.subtree(p, "ffn"), cfg.ffn_kind, h)
+    return x + cfg.residual_scale * f
+
+
+# --------------------------------------------------------------------------
+# full model
+# --------------------------------------------------------------------------
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random weights on the generator's device (the JAX package's
+    layout and scales; the values are the generator's own)."""
+    check_supported(cfg)
+    dtype = param_dtype(cfg)
+    dev = generator.device
+    params: Params = {
+        "embed": (torch.randn(cfg.vocab_padded, cfg.d_model,
+                              generator=generator, device=dev)
+                  * 0.02).to(dtype),
+        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, cfg.d_model,
+                                         cfg.vocab_padded, dtype)
+    for pi, kind in enumerate(cfg.block_pattern):
+        reps = [init_block(generator, cfg, kind, dtype)
+                for _ in range(cfg.pattern_reps)]
+        params.update(L.prefixed(f"blocks_{pi}", {
+            k: torch.stack([r[k] for r in reps]) for k in reps[0]}))
+    for ri, kind in enumerate(cfg.pattern_remainder):
+        params.update(L.prefixed(f"rem_{ri}",
+                                 init_block(generator, cfg, kind, dtype)))
+    return params
+
+
+def _n_lead(params: Params) -> int:
+    return params["final_norm"].ndim - 1
+
+
+def _embed_in(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    embed, tokens = params["embed"], batch["tokens"]
+    n_lead = _n_lead(params)
+    if n_lead == 0:
+        x = embed[tokens]
+    else:
+        # each client reads its own table: (n, Vp, D)[client, token]
+        lead = embed.shape[:n_lead]
+        e = embed.reshape((-1,) + embed.shape[n_lead:])
+        t = tokens.reshape((e.shape[0],) + tokens.shape[n_lead:])
+        idx = torch.arange(e.shape[0], device=t.device).reshape(
+            (-1,) + (1,) * (t.ndim - 1))
+        x = e[idx, t].reshape(lead + tokens.shape[n_lead:] + e.shape[-1:])
+    return x * cfg.scale_emb
+
+
+def _logits_out(params: Params, cfg: ModelConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_norm"])
+    head = (params["lm_head"] if "lm_head" in params
+            else params["embed"].transpose(-1, -2))
+    logits = L.matmul(x, head)
+    return L.softcap(logits.to(torch.float32), cfg.softcap_final)
+
+
+def _default_positions(cfg: ModelConfig, B: int, S: int, offset: int = 0,
+                       device=None) -> torch.Tensor:
+    pos = torch.arange(S, device=device) + offset
+    return pos[None].expand(B, S)
+
+
+def forward(params: Params, cfg: ModelConfig, batch
+            ) -> Tuple[torch.Tensor, None, Optional[torch.Tensor]]:
+    """Full-sequence forward (train).  Returns ``(logits, None, aux)``:
+    no cache (decode comes with the serving slice) and no auxiliary loss
+    (a dense FFN has none: None where the JAX package returns 0)."""
+    check_supported(cfg)
+    x = _embed_in(params, cfg, batch)
+    B, S = x.shape[-3], x.shape[-2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(cfg, B, S, device=x.device)
+    n_lead = _n_lead(params)
+    for pi, kind in enumerate(cfg.block_pattern):
+        stacked = L.subtree(params, f"blocks_{pi}")
+        for layer in range(cfg.pattern_reps):
+            bp = {k: v.select(n_lead, layer) for k, v in stacked.items()}
+            x = apply_block(bp, cfg, kind, x, positions)
+    for ri, kind in enumerate(cfg.pattern_remainder):
+        x = apply_block(L.subtree(params, f"rem_{ri}"), cfg, kind, x,
+                        positions)
+    return _logits_out(params, cfg, x), None, None
+
+
+# --------------------------------------------------------------------------
+# losses (CE over padded vocab) + Task abstraction
+# --------------------------------------------------------------------------
+
+def _mask_pad(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    Vp = logits.shape[-1]
+    if Vp <= vocab_size:
+        return logits
+    mask = torch.arange(Vp, device=logits.device) < vocab_size
+    return torch.where(mask, logits,
+                       torch.full((), L.MASK_VALUE, dtype=logits.dtype,
+                                  device=logits.device))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """logits (..., B, S, Vp) fp32, labels (..., B, S).  Pad region
+    masked out; the mean over (B, S), per leading index."""
+    logits = _mask_pad(logits, vocab_size)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.unsqueeze(-1)).squeeze(-1)
+    return torch.mean(lse - picked, dim=(-2, -1))
+
+
+def sample_labels(logits: torch.Tensor, vocab_size: int,
+                  gumbel: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` with its gumbel draw given:
+    ``argmax(gumbel + logits)`` over the masked vocab."""
+    return torch.argmax(gumbel + _mask_pad(logits, vocab_size), dim=-1)
+
+
+class LMTask:
+    """Bundles init / loss / sampled loss of an LM for the federated
+    engine.  Batches: ``tokens`` and ``labels`` ``(*lead, B, S)``."""
+
+    def __init__(self, cfg: ModelConfig):
+        check_supported(cfg)
+        self.cfg = cfg
+
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        params = init_lm(generator, self.cfg)
+        return {k: v.to(device or generator.device)
+                for k, v in params.items()}
+
+    def logits(self, params: Params, batch):
+        logits, _, aux = forward(params, self.cfg, batch)
+        return logits, aux
+
+    def loss(self, params: Params, batch, rng=None):
+        # a dense decoder has no auxiliary loss (the MoE adds one)
+        logits, _ = self.logits(params, batch)
+        return cross_entropy(logits, batch["labels"], self.cfg.vocab_size)
+
+    def sampled_loss(self, params: Params, batch, gumbel: torch.Tensor):
+        """GNB inner loss: CE against labels sampled from the model
+        itself (``gumbel``: the noise of the logits' shape)."""
+        logits, _ = self.logits(params, batch)
+        y = sample_labels(logits.detach(), self.cfg.vocab_size, gumbel)
+        return cross_entropy(logits, y, self.cfg.vocab_size)
+
+    def gnb_batch_size(self, batch) -> int:
+        lab = batch["labels"]
+        return int(lab.shape[-2] * lab.shape[-1])
+
+    def gumbel_shape(self, batch) -> Tuple[int, ...]:
+        """One client's GNB noise shape: its logits', ``(B, S, Vp)``."""
+        return tuple(batch["labels"].shape[-2:]) + (self.cfg.vocab_padded,)

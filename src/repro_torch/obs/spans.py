@@ -1,5 +1,5 @@
-"""Host-side span timers (the port of the JAX package's
-``repro/obs/spans.py``, `SpanLog` only).
+"""Host-side span timers and the profiler hook (the port of the JAX
+package's ``repro/obs/spans.py``: `SpanLog` and `profile_trace`).
 
 `SpanLog` times named host-side phases (dispatch, apply, round) and
 keeps them as ``span`` records; a span opened by the virtual-time
@@ -9,6 +9,7 @@ also enters a `torch.profiler.record_function` range, so under
 """
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
 from typing import List, Optional
@@ -44,3 +45,33 @@ class SpanLog:
 
     def records(self) -> List[dict]:
         return list(self._spans)
+
+
+class profile_trace:
+    """``with profile_trace(dir):`` captures a `torch.profiler` trace of
+    the host and the card into ``dir/trace.json`` (Chrome Trace Event
+    format; view with Perfetto); a no-op when ``dir`` is empty.  The
+    counterpart of the JAX package's ``jax.profiler`` hook."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        self._prof = None
+
+    def __enter__(self):
+        if self.directory:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            os.makedirs(self.directory, exist_ok=True)
+            path = os.path.join(self.directory, "trace.json")
+            self._prof.export_chrome_trace(path)
+            self._prof = None
+            print(f"wrote profiler trace to {path}", flush=True)
+        return False

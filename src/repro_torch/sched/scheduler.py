@@ -400,15 +400,16 @@ class VirtualScheduler:
         self._probes_on = fed.obs.probes
 
     # ------------------------------------------------------------ randomness
-    def _group_noise(self, rt, n: int, batch_size: int, drawn,
+    def _group_noise(self, rt, n: int, gshape: Tuple[int, ...], drawn,
                      generator) -> Tuple[ClientNoise, Any]:
         """The random inputs of one dispatch group of ``n`` clients:
         ``(ClientNoise, attack(shape))``, from the injected dict
-        ``drawn`` (``"gumbel"`` ``(n, draws, B, K)``; per quantized
+        ``drawn`` (``"gumbel"`` ``(n, draws) + gshape``, ``gshape`` one
+        client's GNB noise shape, ``(B, K)`` or an LM's ``(B, S, Vp)``;
+        per quantized
         stream ``(n, rows, cols)``; ``"attack"`` ``(n, rows, cols)``) or
         from ``generator``."""
         dev = self.engine.device
-        K = self.engine.task.num_classes
         shapes = {}
         for stream, comp, spec in (("uplink", rt.comp, rt.spec),
                                    ("downlink", rt.comp_dn, rt.spec_dn)):
@@ -430,10 +431,10 @@ class VirtualScheduler:
         if drawn is not None:
             gum = given("gumbel") if "gumbel" in drawn else None
             if gum is not None and (gum.shape[0] != n
-                                    or gum.shape[2:] != (batch_size, K)):
+                                    or tuple(gum.shape[2:]) != gshape):
                 raise ValueError(f"draws['gumbel'] has shape "
-                                 f"{tuple(gum.shape)}, want ({n}, draws, "
-                                 f"{batch_size}, {K})")
+                                 f"{tuple(gum.shape)}, want ({n}, draws) "
+                                 f"+ {gshape}")
             uniform = {s: given(s, shp) for s, shp in shapes.items()}
             return (ClientNoise(lambda j: gum[:, j], uniform.get),
                     lambda shape: given("attack", shape))
@@ -446,7 +447,7 @@ class VirtualScheduler:
             return torch.rand(shapes[stream], generator=generator,
                               device=generator.device).to(dev)
         return (ClientNoise(
-            lambda j: gumbel_noise(generator, (n, batch_size, K), dev),
+            lambda j: gumbel_noise(generator, (n,) + gshape, dev),
             draw_uniform),
             lambda shape: torch.randn(tuple(shape), generator=generator,
                                       device=generator.device).to(dev))
@@ -489,7 +490,8 @@ class VirtualScheduler:
                   else SophiaState(m=take(opts.m), h=take(opts.h)))
         batches_g = {k: take(v) for k, v in batches.items()}
         noise, attack_noise = self._group_noise(
-            rt, len(group), int(batches_g["y"].shape[1]), drawn, generator)
+            rt, len(group), tuple(engine.task.gumbel_shape(batches_g)),
+            drawn, generator)
         out = engine.comm_client_step_batched(
             rt, theta, theta_dn, version, lr, opts_g,
             take(state.get("comm_ef")), take(state.get(cdown.MODEL_KEY)),

@@ -1099,3 +1099,78 @@ def test_done_round_on_the_card_matches_the_cpu(card):
         optimizer="done", lr=1.0, local_iters=1))
     np.testing.assert_allclose(gl, cl, rtol=1e-4, atol=1e-5)
     _close_in_dtype(gs["params"], cs["params"])
+
+
+# ------------------------------------------- slice 10: the LM, checkpoints
+def _lm_cfg(dtype):
+    import dataclasses
+    from repro_torch.configs import get_model_config
+    return dataclasses.replace(
+        get_model_config("minicpm-2b").reduced(d_model=128), dtype=dtype)
+
+
+def _lm_batch(cfg, device, lead=()):
+    rs = np.random.default_rng(3)
+    tok = torch.tensor(rs.integers(0, cfg.vocab_size, lead + (2, 32)))
+    return {"tokens": tok.to(device),
+            "labels": torch.roll(tok, -1, dims=-1).to(device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_loss_and_grads_on_the_card_match_the_cpu(card, dtype):
+    """minicpm-2b reduced(d_model=128): loss and grads on the card against
+    the CPU, from the same weights and batch, with a leading client
+    axis.  fp32 (TF32 off): rtol 1e-4 / atol 1e-5; bf16: the loss rtol
+    1e-3, each grad leaf within 2^-5 of its largest magnitude (the bf16
+    bands of tests/test_torch_lm.py)."""
+    from repro_torch.models.transformer import LMTask
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg(dtype)
+    task = LMTask(cfg)
+    ps = [task.init(torch.Generator().manual_seed(s), "cpu") for s in (0, 1)]
+    params = {k: torch.stack([p[k] for p in ps]) for k in ps[0]}
+    out = {}
+    for dev in ("cpu", card):
+        pg = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        loss = task.loss(pg, _lm_batch(cfg, dev, lead=(2,)))
+        grads = torch.autograd.grad(loss.sum(), list(pg.values()))
+        out[str(dev)] = (loss.detach().cpu(),
+                         [g.float().cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(card)]
+    fp32 = dtype == "float32"
+    np.testing.assert_allclose(lg.numpy(), lc.numpy(),
+                               rtol=1e-4 if fp32 else 1e-3,
+                               atol=1e-5 if fp32 else 0)
+    for k, a, b in zip(params, gc, gg):
+        if fp32:
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_allclose(
+                b.numpy(), a.numpy(), rtol=0,
+                atol=2 ** -5 * float(a.abs().max()), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_lm_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A packed LM state on the card saved and restored through the
+    checkpoint shims: the leaves bitwise the saved ones, the packed
+    buffer bitwise its bf16-rounded self, on the card."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models.transformer import LMTask
+    task = LMTask(_lm_cfg("bfloat16"))
+    params = task.init(torch.Generator(device=card).manual_seed(0), card)
+    spec = tflat.flat_spec(params)
+    packed = tflat.pack(params, spec) + 1e-4 * torch.randn(
+        spec.rows, spec.cols, device=card)
+    ckpt.save_packed(str(tmp_path), packed, spec, step=2, extra={"k": 1})
+    leaves = tflat.unpack(packed, spec)
+    back = ckpt.restore(str(tmp_path), leaves)
+    for k, v in leaves.items():
+        assert back[k].device == v.device and back[k].dtype == v.dtype
+        assert torch.equal(back[k].view(torch.int16), v.view(torch.int16))
+    again = ckpt.restore_packed(str(tmp_path), spec, device=card)
+    assert again.device.type == "cuda"
+    assert torch.equal(again, tflat.pack(leaves, spec))
+    assert ckpt.load_manifest(str(tmp_path))["extra"] == {"k": 1}
