@@ -634,6 +634,7 @@ class FedEngine:
                 else:
                     agg_flat = agg_flat + t_i / C
                 losses.append(loss)
+                del t_i      # before client i+1 trains
             losses = torch.stack(losses)
             if adversarial:
                 new_t = torch.stack(stack)
@@ -756,6 +757,8 @@ class FedEngine:
                     h_agg = h_agg + h_hat_k / S
                     h_wstat = h_wstat + h_stat_k / S
                 losses.append(loss)
+                # client k's outputs go before client k+1 trains
+                del wire, ef_k, dnm_k, dnef_k, h_hat_k
             losses = torch.stack(losses)
             if collect:
                 agg = combine(torch.stack(stack))
@@ -1036,6 +1039,10 @@ class FedEngine:
                 beta2=fed.beta2, rho=fed.rho, eps=fed.eps,
                 weight_decay=fed.weight_decay, inplace=True)
             losses.append(loss)
+            # this step's grads and params view go before the next
+            # step's are made (two of each would coexist: gigabytes at
+            # an LM's size)
+            del g, pg, hh
         return torch.stack(losses)
 
     def _local_sophia_flat(self, spec, theta, m, h, batch, round_idx, noise,

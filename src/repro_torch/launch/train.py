@@ -15,7 +15,13 @@ the loss print), the obs loop (``--obs-log``: metrics held on the
 device in an `obs.MetricsAccumulator`, one host copy and the ``round``
 records per flush), or the virtual-time scheduler (``--schedule
 semisync|async``: its event records and spans), and a checkpoint
-(``--ckpt-dir``) in the JAX package's format.
+(``--ckpt-dir``) in the JAX package's format.  The checkpoint's save
+and a resume's restore are timed on the host clock after a synchronise
+and printed with the bytes written.
+
+The arch file's ``FED`` overrides set the schedule and, unlike the JAX
+CLI, which passes only ``schedule`` on, the strategy too: gemma2-9b and
+qwen3-14b train on the sequential strategy, as their configs ask.
 
 Randomness: the weights, the token batches and each round's GNB noise
 come from `torch.Generator`s seeded from ``--seed``.  `main` also takes
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -208,24 +215,24 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
-         ) -> Dict[str, Any]:
-    """Run the CLI on ``argv`` (``sys.argv[1:]`` when None).  Returns
-    the engine, the final state, the per-round (or per-event) losses
-    and host seconds, and the records the run emitted (with
-    ``--obs-log``)."""
-    args = build_parser().parse_args(argv)
-    hooks = hooks or {}
-    dev = resolve_device(args.device)
-
+def model_config(args) -> configs.ModelConfig:
+    """The arch's `ModelConfig` as the parsed ``args`` ask: ``--reduced``
+    widths, then ``--layers`` (the block pattern tiles the cut depth:
+    gemma2-9b at 2 layers keeps one ``local`` and one ``global``
+    block)."""
     cfg = configs.get_model_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(d_model=128)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    over = configs.get_fed_overrides(args.arch)
+    return cfg
+
+
+def comm_config(args) -> CommConfig:
+    """The `CommConfig` of the parsed ``args``' comm and residency
+    flags."""
     ef = {"auto": "auto", "on": True, "off": False}[args.error_feedback]
-    comm = CommConfig(compressor=args.compressor,
+    return CommConfig(compressor=args.compressor,
                       participation=args.participation,
                       topk_ratio=args.topk_ratio,
                       error_feedback=ef,
@@ -236,6 +243,21 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
                       moment_dtype=args.moment_dtype,
                       hessian_dtype=args.hessian_dtype,
                       use_pallas=args.comm_pallas)
+
+
+def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
+         ) -> Dict[str, Any]:
+    """Run the CLI on ``argv`` (``sys.argv[1:]`` when None).  Returns
+    the engine, the final state, the per-round (or per-event) losses
+    and host seconds, and the records the run emitted (with
+    ``--obs-log``)."""
+    args = build_parser().parse_args(argv)
+    hooks = hooks or {}
+    dev = resolve_device(args.device)
+
+    cfg = model_config(args)
+    over = configs.get_fed_overrides(args.arch)
+    comm = comm_config(args)
     sched = SchedConfig(discipline=args.schedule,
                         buffer_size=args.buffer_size,
                         staleness_power=args.staleness_power,
@@ -255,6 +277,7 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
     fed = FedConfig(num_clients=args.clients, local_iters=args.local_iters,
                     optimizer=args.optimizer, lr=args.lr, tau=args.tau,
                     total_rounds=args.rounds, use_pallas=args.use_pallas,
+                    strategy=over.get("strategy", "parallel"),
                     schedule=over.get("schedule", "const"), comm=comm,
                     sched=sched, robust=robust,
                     obs=ObsConfig(probes=args.probes, trace=args.trace,
@@ -266,16 +289,30 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
     else:
         params = task.init(_generator(dev, args.seed, _INIT_SALT), dev)
     state = engine.init_from_params(params)
+    # the state holds the weights now: once packed (below) the dict goes
+    del params
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    ckpt_times = {}
     if args.resume:
         manifest = ckpt.load_manifest(args.ckpt_dir)
         cflat.check_headers(manifest.get("extra", {}).get("wire", {}),
                             engine.wire_headers(state["params"]))
+        sync()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(args.ckpt_dir, state["params"])
+        sync()
+        ckpt_times["restore_s"] = time.perf_counter() - t0
         # re-sync the client state that references the model (downlink
         # replicas, EF residuals) to the restored params
-        state = engine.restore_params(
-            state, ckpt.restore(args.ckpt_dir, state["params"]))
+        state = engine.restore_params(state, restored)
+        del restored
         print(f"resumed params from {args.ckpt_dir} "
-              f"(step {manifest['step']}, wire headers OK)")
+              f"(step {manifest['step']}, wire headers OK; restored in "
+              f"{ckpt_times['restore_s']:.3f} s)")
     if not args.tree_state:
         # params stay packed in wire layout between rounds; dicts exist
         # only at the loss/grad and checkpoint boundaries
@@ -408,10 +445,6 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
             rec["attack"] = robust.attack
         recorder.emit(rec)
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     with obs.profile_trace(args.profile_dir):
         if args.schedule == "sync" and recorder is None:
             # the plain synchronous loop: the per-round host sync is the
@@ -494,6 +527,8 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
     if args.ckpt_dir:
         extra = {"arch": args.arch,
                  "wire": engine.wire_headers(state["params"])}
+        sync()
+        t0 = time.perf_counter()
         if engine.params_packed(state["params"]):
             # the on-disk format is the params tree whatever the
             # between-round residency
@@ -502,9 +537,14 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
         else:
             ckpt.save(args.ckpt_dir, state["params"], step=args.rounds,
                       extra=extra)
-        print(f"saved checkpoint to {args.ckpt_dir}")
+        ckpt_times["save_s"] = time.perf_counter() - t0
+        ckpt_times["save_bytes"] = os.path.getsize(
+            os.path.join(args.ckpt_dir, "arrays.npz"))
+        print(f"saved checkpoint to {args.ckpt_dir} "
+              f"({ckpt_times['save_bytes']:,} bytes of arrays in "
+              f"{ckpt_times['save_s']:.3f} s)")
     return {"engine": engine, "state": state, "losses": losses,
-            "seconds": seconds, "records": records}
+            "seconds": seconds, "records": records, "ckpt": ckpt_times}
 
 
 if __name__ == "__main__":

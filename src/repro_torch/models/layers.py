@@ -1,6 +1,7 @@
 """Neural-net primitives of the LM zoo, the dense subset: the port of
 the JAX package's ``models/layers.py`` for the dense decoder (GQA / MHA
-attention with RoPE, swiglu / geglu / gelu FFN, RMSNorm).
+attention with RoPE, qk-norm, a sliding window and a logit softcap;
+swiglu / geglu / gelu FFN, RMSNorm).
 
 Everything is functional.  A parameter tree is a flat
 ``dict[str, Tensor]`` keyed by ``/``-joined paths (``"mixer/wq"``),
@@ -265,7 +266,7 @@ def attention(q, k, v, *, q_pos, k_pos, causal, window=None, scale=None,
 
 
 # --------------------------------------------------------------------------
-# GQA attention block (the 'attn' kind)
+# GQA attention block (the 'attn', 'local' and 'global' kinds)
 # --------------------------------------------------------------------------
 
 def pad_head_mask(cfg: ModelConfig, device=None) -> torch.Tensor:
@@ -299,13 +300,18 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
         col = pad_head_mask(cfg, generator.device).to(dtype)
         p["wq"] = p["wq"] * col[None, :]
         p["wo"] = p["wo"] * col[:, None]
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=generator.device)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=generator.device)
     return p
 
 
 def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, kind: str) -> torch.Tensor:
     """x (*lead, B, S, D), positions (B, S); full sequence (no cache:
-    decode comes with the serving slice).  Returns the mixer output."""
+    decode comes with the serving slice).  A ``local`` block attends
+    within ``cfg.window``; with ``cfg.qk_norm`` q and k are RMS-normed
+    over the head dim before RoPE.  Returns the mixer output."""
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     if cfg.pad_attn_heads:
         H = max(cfg.pad_attn_heads, H)      # zero no-op heads (see init)
@@ -314,6 +320,9 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q = matmul(x, p["wq"]).reshape(tok + (H, hd))
     k = matmul(x, p["wk"]).reshape(tok + (K, hd))
     v = matmul(x, p["wv"]).reshape(tok + (K, hd))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
     q_pos = positions[0]                    # (S,)

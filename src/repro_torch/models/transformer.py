@@ -1,6 +1,12 @@
 """The decoder stack of the LM zoo, the dense members: the port of the
 JAX package's ``models/transformer.py`` for configs whose every block
-is an ``attn`` block with a dense FFN (minicpm-2b, chatglm3-6b).
+is an attention block (``attn``, or gemma2's alternating ``local`` /
+``global``) with a dense FFN: minicpm-2b, chatglm3-6b, gemma2-9b,
+qwen3-14b.  The features of those configs run as in JAX: a sliding
+window on ``local`` blocks (``long_mode_swa_only`` makes every
+``global`` block ``local``), the attention and final logit softcaps,
+post-norms (``post_ln1`` after the mixer, ``post_ln2`` after the FFN,
+before each residual add), qk-norm, GeGLU.
 
 Parameters are the flat ``/``-keyed dict of `repro_torch.models.layers`:
 ``embed``, ``final_norm``, ``lm_head`` (untied configs), and the blocks
@@ -12,9 +18,8 @@ leading client axis ``(N, ...)`` (batch leaves ``(N, B, S)``): the loss
 then comes back per client, shape ``(N,)``.
 
 Every other family or feature raises `NotImplementedError` naming
-ROADMAP queue 1 (g): MLA, MoE, the recurrent mixers (rec / m / s), the
-local and global attention kinds, post-norms, logit softcaps, qk-norm,
-M-RoPE and embedding inputs.
+ROADMAP queue 1 (g): MLA, MoE, the recurrent mixers (rec / m / s),
+M-RoPE, embedding inputs and blocks without an FFN.
 
 GNB label sampling goes through the RNG seam: ``sampled_loss`` takes
 gumbel noise of the logits' shape and samples ``argmax(logits +
@@ -35,6 +40,9 @@ Params = Dict[str, torch.Tensor]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+#: the attention block kinds (full, sliding-window, and gemma2's global)
+ATTN_KINDS = ("attn", "local", "global")
+
 
 def _not_ported(what: str):
     return NotImplementedError(
@@ -52,19 +60,22 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if kind in ("rec", "m", "s"):
             raise _not_ported(f"{cfg.name}: the recurrent mixer {kind!r}")
-        if kind != "attn":
-            raise _not_ported(f"{cfg.name}: the {kind!r} attention kind")
-    for field, what in (("post_norm", "post-block norms"),
-                        ("softcap_attn", "attention logit softcaps"),
-                        ("softcap_final", "final logit softcaps"),
-                        ("qk_norm", "qk-norm"),
-                        ("mrope_sections", "M-RoPE"),
-                        ("embedding_inputs", "embedding inputs"),
-                        ("long_mode_swa_only", "long-context SWA mode")):
+        if kind not in ATTN_KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+    for field, what in (("mrope_sections", "M-RoPE"),
+                        ("embedding_inputs", "embedding inputs")):
         if getattr(cfg, field):
             raise _not_ported(f"{cfg.name}: {what}")
     if cfg.d_ff <= 0:
         raise _not_ported(f"{cfg.name}: a block without an FFN")
+
+
+def _effective_kind(cfg: ModelConfig, kind: str) -> str:
+    """gemma2's long-context serving mode: global blocks fall back to
+    the sliding window."""
+    if kind == "global" and cfg.long_mode_swa_only:
+        return "local"
+    return kind
 
 
 # --------------------------------------------------------------------------
@@ -74,11 +85,18 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
                dtype: torch.dtype) -> Params:
     dev = generator.device
-    p: Params = {"ln1": torch.ones(cfg.d_model, dtype=dtype, device=dev)}
+
+    def ones():
+        return torch.ones(cfg.d_model, dtype=dtype, device=dev)
+    p: Params = {"ln1": ones()}
     p.update(L.prefixed("mixer", L.init_attention(generator, cfg, dtype)))
-    p["ln2"] = torch.ones(cfg.d_model, dtype=dtype, device=dev)
+    if cfg.post_norm:
+        p["post_ln1"] = ones()
+    p["ln2"] = ones()
     p.update(L.prefixed("ffn", L.init_ffn(generator, cfg.d_model, cfg.d_ff,
                                           cfg.ffn_kind, dtype)))
+    if cfg.post_norm:
+        p["post_ln2"] = ones()
     return p
 
 
@@ -86,10 +104,14 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(x, p["ln1"])
     mix = L.attention_apply(L.subtree(p, "mixer"), cfg, h, positions,
-                            kind=kind)
+                            kind=_effective_kind(cfg, kind))
+    if cfg.post_norm:
+        mix = L.rms_norm(mix, p["post_ln1"])
     x = x + cfg.residual_scale * mix
     h = L.rms_norm(x, p["ln2"])
     f = L.ffn_apply(L.subtree(p, "ffn"), cfg.ffn_kind, h)
+    if cfg.post_norm:
+        f = L.rms_norm(f, p["post_ln2"])
     return x + cfg.residual_scale * f
 
 

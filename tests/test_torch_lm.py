@@ -1,6 +1,8 @@
 """The port's LM zoo (dense decoder) against the JAX package's, at a
-reduced size: minicpm-2b and chatglm3-6b ``reduced(d_model=128)``, 2
-layers, seq 16-48, the same inputs (numpy, seeded) into both.
+reduced size: minicpm-2b, chatglm3-6b, gemma2-9b and qwen3-14b
+``reduced(d_model=128)``, 2 layers, seq 16-48, the same inputs (numpy,
+seeded) into both; gemma2-9b's reduced window (64) is cut to
+`WINDOW` so that its local block's window bites at seq 24.
 
 Bands, stated per test:
 
@@ -49,8 +51,10 @@ from repro_torch.models import transformer as TT
 
 RTOL, ATOL = 1e-5, 1e-6
 #: the dense decoders the port runs
-DENSE = ("minicpm-2b", "chatglm3-6b")
+DENSE = ("minicpm-2b", "chatglm3-6b", "gemma2-9b", "qwen3-14b")
 B, S = 2, 24
+#: the sliding window of the reduced configs that have one, below `S`
+WINDOW = 16
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -64,6 +68,8 @@ def _clear_jax_caches():
 def _cfgs(arch, dtype=None):
     j = jconfigs.get_model_config(arch).reduced(d_model=128)
     t = configs.get_model_config(arch).reduced(d_model=128)
+    if t.window is not None:
+        j, t = (dataclasses.replace(c, window=WINDOW) for c in (j, t))
     if dtype is not None:
         j, t = (dataclasses.replace(c, dtype=dtype) for c in (j, t))
     return j, t
@@ -71,11 +77,12 @@ def _cfgs(arch, dtype=None):
 
 def _params(jcfg, seed=0):
     jp = JT.init_lm(jax.random.PRNGKey(seed), jcfg)
-    # norm weights off one, so a norm-weight slip cannot hide behind ones
+    # norm weights (every vector leaf, stacked over at most a few layers:
+    # ln1/ln2, the post-norms, qk-norm's q_norm/k_norm, final_norm) off
+    # one, so a norm-weight slip cannot hide behind ones
     rs = np.random.RandomState(seed)
     jp = jax.tree.map(
-        lambda x: x if x.shape[-1] != jcfg.d_model or x.ndim > 2 or (
-            x.ndim == 2 and x.shape[0] > 8) else
+        lambda x: x if x.ndim > 2 or (x.ndim == 2 and x.shape[0] > 8) else
         (x * (1.0 + 0.2 * rs.randn(*x.shape))).astype(x.dtype), jp)
     return jp, convert.params_from_numpy(jax.tree.map(np.asarray, jp),
                                          "cpu")
@@ -351,11 +358,11 @@ def test_unported_families_raise(arch):
 C, J, TAU, EB, ES, ROUNDS = 2, 2, 1, 2, 16, 2
 
 
-def _gumbel(rng, vp):
+def _gumbel(rng, vp, seq=ES):
     """The JAX engine's GNB draws of one round, ``(C, J, B, S, Vp)``:
     client i's step j from ``fold_in(fold_in(rng, i), j)``."""
     return np.stack([np.stack([np.asarray(jax.random.gumbel(
-        jax.random.fold_in(jax.random.fold_in(rng, i), j), (EB, ES, vp),
+        jax.random.fold_in(jax.random.fold_in(rng, i), j), (EB, seq, vp),
         jnp.float32)) for j in range(J)]) for i in range(C)])
 
 
@@ -365,10 +372,13 @@ def _gumbel(rng, vp):
 BF16_ATOL, BF16_MAX_OUT = 1e-4, 16
 
 
-def _bf16_band(got, want, name, flip, msg):
+def _bf16_band(got, want, name, flip, msg, outliers=0):
     """At bf16 parameters the grads agree to bf16 rounding, so m and h
     (EMAs of grads and squared grads) within 2^-5 of their largest
-    magnitude, the grads' own band.  The params within ``BF16_ATOL``
+    magnitude, the grads' own band; with ``outliers``, at most that many
+    coordinates of each out to twice it (a GNB label sampled at a
+    near-tie of the logits flips, and moves its token's share of the
+    curvature).  The params within ``BF16_ATOL``
     plus one bf16 step of their value (the resolution at which the
     model reads them), but for at most `BF16_MAX_OUT` coordinates where
     one engine's m
@@ -378,19 +388,23 @@ def _bf16_band(got, want, name, flip, msg):
     got, want = (np.asarray(x, np.float32) for x in (got, want))
     diff = np.abs(got - want)
     if name != "params":
-        assert np.all(diff <= 2 ** -5 * np.abs(want).max()), (
-            msg, float(diff.max()), float(np.abs(want).max()))
+        top = float(np.abs(want).max())
+        out = diff > 2 ** -5 * top
+        assert int(out.sum()) <= outliers, (msg, float(diff.max()), top,
+                                            int(out.sum()))
+        assert np.all(diff <= 2 ** -4 * top), (msg, float(diff.max()), top)
         return
     out = diff > BF16_ATOL + 2 ** -8 * np.abs(want)
     assert int(out.sum()) <= BF16_MAX_OUT, (msg, int(out.sum()))
     assert np.all(diff[out] <= flip), (msg, float(diff.max()), flip)
 
 
-@pytest.mark.parametrize("strategy,dtype", [("parallel", "float32"),
-                                            ("sequential", "float32"),
-                                            ("parallel", "bfloat16")])
-def test_lm_rounds_match_jitted_jax(strategy, dtype):
-    jcfg, tcfg = _cfgs("minicpm-2b", dtype)
+def rounds_vs_jitted_jax(arch, strategy, dtype, seq=ES, outliers=0):
+    """`ROUNDS` engine rounds of the reduced ``arch`` at ``seq`` tokens
+    against ``jax.jit(FedEngine.round)`` from the same state, batches
+    and GNB draws, held to the module's engine bands after each round
+    (``outliers``: `_bf16_band`'s)."""
+    jcfg, tcfg = _cfgs(arch, dtype)
     kw = dict(num_clients=C, local_iters=J, tau=TAU, lr=1e-3,
               schedule="wsd", total_rounds=4, strategy=strategy)
     jeng = JFedEngine(JT.LMTask(jcfg), JFedConfig(use_pallas=True, **kw))
@@ -404,12 +418,12 @@ def test_lm_rounds_match_jitted_jax(strategy, dtype):
     fp32 = dtype == "float32"
     for r in range(ROUNDS):
         jb = jsyn.make_token_batch(jax.random.fold_in(key, 100 + r), C, EB,
-                                   ES, jcfg.vocab_size)
+                                   seq, jcfg.vocab_size)
         tb = {k: torch.tensor(np.asarray(v)) for k, v in jb.items()}
         rng = jax.random.fold_in(key, 1000 + r)
         jstate, jm = jround(jstate, jb, rng)
         tstate, tm = teng.round(tstate, tb, gumbel=torch.from_numpy(
-            _gumbel(rng, jcfg.vocab_padded)))
+            _gumbel(rng, jcfg.vocab_padded, seq)))
         assert tm["total_bytes"] == int(jm["total_bytes"])
         assert float(tm["lr"]) == float(jm["lr"])
         _close(tm["loss"], jm["loss"], rtol=RTOL if fp32 else 1e-3)
@@ -424,4 +438,11 @@ def test_lm_rounds_match_jitted_jax(strategy, dtype):
                 _close(b, a, msg=f"round {r} {name}")
             else:
                 _bf16_band(b, a, name, 2 * kw["lr"] * J * (r + 1) / C,
-                           f"round {r} {name}")
+                           f"round {r} {name}", outliers)
+
+
+@pytest.mark.parametrize("strategy,dtype", [("parallel", "float32"),
+                                            ("sequential", "float32"),
+                                            ("parallel", "bfloat16")])
+def test_lm_rounds_match_jitted_jax(strategy, dtype):
+    rounds_vs_jitted_jax("minicpm-2b", strategy, dtype)
