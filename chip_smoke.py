@@ -43,11 +43,19 @@ its save and restore timed, one profiled round); the same path with an
 int8 uplink (`lm_comm`), and gemma2-9b at its published widths (d_model
 3584, 16 heads of 256, 8 kv heads, d_ff 14336, vocab 256,000; one local
 and one global block with both softcaps and post-norms) on the
-sequential strategy with an int8 uplink, 2 clients (`lm_seq`); holds
-the reduced LMs' rounds on the card against the CPU (`lm_small_check`:
-minicpm-2b, gemma2-9b and qwen3-14b on their strategies; minicpm-2b at
-bidir int8/int8/int4, int8 with EF, top-k and SignSGD with the
-majority vote) and times rows 1, 2, 4 and 5 at the LM slice's shapes
+sequential strategy with an int8 uplink, 2 clients (`lm_seq`), and
+deepseek-v2-lite-16b at its published widths (d_model 2048, 16 heads
+of MLA attention with a 512-wide latent, 64 routed experts of d_ff 1408
+top-6 and 2 shared, vocab 102,400 untied) the same way (`lm_moe`: its
+peak reckoned by buffer first, the MoE dispatch / combine share of the
+profiled round, the routers fp32 through the checkpoint, the resumed
+round's loss below round 0's on the same batches); holds the
+reduced LMs' rounds on the card against the CPU (`lm_small_check`:
+minicpm-2b, gemma2-9b, qwen3-14b, deepseek-v2-lite-16b and
+qwen3-moe-235b-a22b on their strategies, deepseek also parallel, with
+the MoE routing compared choice by choice; minicpm-2b at bidir
+int8/int8/int4, int8 with EF, top-k and SignSGD with the majority
+vote) and times rows 1, 2, 4 and 5 at the LM slices' shapes
 (`time_lm_kernels`, the ``lm_kernels`` line).
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
@@ -59,6 +67,7 @@ line.  The second-to-last line of standard output is the ``{"kernels":
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import itertools
 import json
@@ -94,6 +103,7 @@ from repro_torch.kernels import robust_agg as trobust  # noqa: E402
 from repro_torch.kernels import sophia_update as tk  # noqa: E402
 from repro_torch.kernels import stale_accum as tstale  # noqa: E402
 from repro_torch.kernels.ref import sophia_update_ref  # noqa: E402
+from repro_torch.models.layers import ROUTE_SPAN  # noqa: E402
 from repro_torch.models.small import (CNNTask, MLPTask,  # noqa: E402
                                       gumbel_noise)
 from repro_torch.obs.probes import PROBE_METRICS  # noqa: E402
@@ -224,7 +234,8 @@ BIASED_BIDIR = dict(compressor="signsgd", downlink_compressor="topk",
                     hessian_compressor="int4", topk_ratio=TOPK_RATIO,
                     participation=0.5)
 SMALL_MAX_FLIPS = 16
-STEPS_OF = {"params": ("uplink", "downlink"), "m": ("uplink", "downlink"),
+STEPS_OF = {"params": ("uplink", "downlink", "clip"),
+            "m": ("uplink", "downlink"),
             "h": ("uplink", "downlink", "hessian"),
             "comm_ef": ("uplink",), "comm_dn_model": ("downlink",),
             "comm_dn_ef": ("downlink",)}
@@ -2867,6 +2878,15 @@ LM_ROUNDS, LM_RESUME_ROUNDS = 3, 1
 SEQ_ARCH = "gemma2-9b"
 SEQ_PARAMS, SEQ_PACKED = 1_313_897_984, (1_283_104, 1024)
 SEQ_CLIENTS = 2
+#: slice 12's MoE path: deepseek-v2-lite-16b (arXiv:2405.04434) at its
+#: published widths (d_model 2048, 16 heads; MLA: kv_lora 512, q/k heads
+#: of 128 + a 64-wide RoPE part, v heads of 128; 64 routed experts of
+#: d_ff 1408, top-6, 2 shared; vocab 102,400 untied), every layer MoE
+#: (the JAX config's), the depth cut 27 -> 2 layers, on its arch's FED
+#: strategy (sequential), int8 uplink, 2 clients
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_PARAMS, MOE_PACKED = 1_589_128_192, (1_551_883, 1024)
+MOE_CLIENTS = 2
 #: the LM phases through the CLI: (arch, parameters, packed shape,
 #: clients, extra flags, launches of a run of r rounds).  Launches, from
 #: `FedEngine._round_comm` / `_round_direct`: each local step one Sophia
@@ -2885,7 +2905,17 @@ LM_PHASES = {
                lambda r: expect(
                    sophia_update_flat=r * SEQ_CLIENTS * LM_ITERS,
                    quant_roundtrip_flat=r * SEQ_CLIENTS)),
+    "lm_moe": (MOE_ARCH, MOE_PARAMS, MOE_PACKED, MOE_CLIENTS,
+               ("--compressor", "int8"),
+               lambda r: expect(
+                   sophia_update_flat=r * MOE_CLIENTS * LM_ITERS,
+                   quant_roundtrip_flat=r * MOE_CLIENTS)),
 }
+#: the phases whose resumed round (round 0's batches again: the CLI
+#: salts batches by the run's round index) must give a loss below the
+#: first run's round 0: the model learnt those batches.  Over the first
+#: run's rounds, new batches each, the loss need not fall at lr 1e-3
+LM_RELEARN = ("lm_moe",)
 #: the kernels of a profiled LM round, by words of the device activity's
 #: name: the Sophia update (rows 1-2) and the quantize round-trip (4-5)
 LM_KERNEL_WORDS = {"Sophia (rows 1-2)": "sophia",
@@ -2898,6 +2928,26 @@ def lm_argv(arch, clients, ckpt_dir, rounds, *extra):
             "--local-iters", str(LM_ITERS), "--tau", str(LM_TAU),
             "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
             "--ckpt-dir", str(ckpt_dir), "--seed", str(SEED), *extra]
+
+
+def reckon_seq_peak(n_params, packed_shape, clients, logits_shape):
+    """The peak of a sequential LM round (`FedEngine._sophia_loop` of one
+    client, the others' state resident), reckoned by buffer before the
+    run: ``(name, bytes)`` pairs.  P is one fp32 buffer in wire layout.
+    Resident: server θ (P), m and h of every client (2·C·P); while one
+    client trains: its θ (P), the zero ĥ of steps without a refresh (P),
+    the packed grads (P) and GNB estimate (P), the params view and its
+    grads (bf16: P/2 each), the running client sum of the round (P);
+    the logits with their softmax and grad (fp32, three copies)."""
+    P = packed_shape[0] * packed_shape[1] * 4
+    logits = 4 * int(np.prod(logits_shape))
+    return [("server θ", P), (f"m and h of {clients} clients",
+                              2 * clients * P),
+            ("client θ", P), ("zero ĥ", P), ("packed grads", P),
+            ("packed GNB estimate", P),
+            ("params view and its grads (bf16)", 4 * n_params),
+            ("client sum of the round", P),
+            ("logits, softmax and grad (fp32)", 3 * logits)]
 
 
 def lm_phase(label, device):
@@ -2918,6 +2968,15 @@ def lm_phase(label, device):
     arch, n_params, packed_shape, clients, flags, want_of = LM_PHASES[label]
     card = card_info()
     launches = {name: 0 for name in REPLACES}
+    from repro_torch.configs import get_fed_overrides, get_model_config
+    reckoned = None
+    if get_fed_overrides(arch).get("strategy") == "sequential":
+        cfg = get_model_config(arch)
+        parts = reckon_seq_peak(n_params, packed_shape, clients,
+                                (LM_BATCH, LM_SEQ, cfg.vocab_padded))
+        reckoned = sum(b for _, b in parts)
+        print(f"{label}: reckoned peak {reckoned} bytes: " + "; ".join(
+            f"{name} {b}" for name, b in parts))
     with tempfile.TemporaryDirectory(prefix=f"{label}_") as tmp:
         tmp = Path(tmp)
         log = tmp / "run.jsonl"
@@ -2952,6 +3011,9 @@ def lm_phase(label, device):
               f"J={LM_ITERS}: losses {losses}; seconds per round {secs}; "
               f"steady seconds per round (rounds 1-{LM_ROUNDS - 1}) "
               f"{steady}; peak device memory {peak} bytes; {card}")
+        if reckoned is not None:
+            print(f"{label}: peak {peak} bytes against the reckoned "
+                  f"{reckoned} ({(peak - reckoned) / 1e9} GB over)")
 
         recs = obs.read_records(str(log))
         for rec in recs:
@@ -2982,9 +3044,16 @@ def lm_phase(label, device):
         sync()
         restore_s = time.perf_counter() - t0
         for k, v in saved.items():
-            if not torch.equal(bits(restored[k]), bits(v)):
+            if (restored[k].dtype != v.dtype
+                    or not torch.equal(bits(restored[k]), bits(v))):
                 raise SystemExit(f"{label}: checkpoint leaf {k} is not "
                                  "bitwise the saved params")
+        routers = [k for k in saved if k.endswith("/router")]
+        if engine.task.cfg.moe is not None and (not routers or any(
+                saved[k].dtype != torch.float32
+                or manifest["dtypes"][k] != "float32" for k in routers)):
+            raise SystemExit(f"{label}: router leaves {routers} are not "
+                             "fp32 in the params and the checkpoint")
         if (manifest["step"] != LM_ROUNDS
                 or manifest["extra"]["wire"]
                 != engine.wire_headers(state["params"])):
@@ -3002,10 +3071,20 @@ def lm_phase(label, device):
         batches = syn.make_token_batch(gen(device, SEED + 7), clients,
                                        LM_BATCH, LM_SEQ, cfg.vocab_size,
                                        device=device)
-        by_name = profile_call(
+        by_name, span_us = profile_call(
             lambda: engine.round(state, batches,
                                  generator=gen(device, SEED + 8)), steady,
-            top=16)
+            top=16, spans=(ROUTE_SPAN,))
+        busy = sum(t for t, _ in by_name.values())
+        if cfg.moe is not None:
+            route_us = span_us[ROUTE_SPAN]
+            if not route_us:
+                raise SystemExit(f"{label}: the profile shows no MoE "
+                                 "dispatch / combine range")
+            print(f"{label}: profiled round: MoE dispatch / combine "
+                  f"einsums (forward and backward, every layer, client "
+                  f"and step) {route_us} us of device activities in their "
+                  f"ranges ({route_us / busy} of device time); {card}")
         for what, word in LM_KERNEL_WORDS.items():
             hits = [(t, n) for name, (t, n) in by_name.items()
                     if word in name.lower()]
@@ -3022,6 +3101,10 @@ def lm_phase(label, device):
         want = want_of(LM_RESUME_ROUNDS)
         print(f"{label} resume: launches {got}, losses {res['losses']}, "
               f"restore in the CLI {res['ckpt']['restore_s']} s")
+        if label in LM_RELEARN and not res["losses"][0] < losses[0]:
+            raise SystemExit(f"{label} resume: round 0's batches again, "
+                             f"loss {res['losses'][0]} not below the first "
+                             f"run's {losses[0]}")
         if got != want or not all(np.isfinite(res["losses"])):
             raise SystemExit(f"{label} resume: launches {got}, want "
                              f"{want}; losses {res['losses']}")
@@ -3050,9 +3133,18 @@ def lm_seq(device):
     return lm_phase("lm_seq", device)
 
 
+def lm_moe(device):
+    """Slice 12's MoE path: deepseek-v2-lite-16b x 2 layers at its
+    published widths (MLA attention, MoE with shared experts), 2 clients
+    on its arch's sequential strategy, ``--compressor int8`` (rows 1 and
+    4)."""
+    return lm_phase("lm_moe", device)
+
+
 #: the LM's card-against-CPU checks, reduced(d_model=128) at fp32
 #: parameters, J=2, tau=2, batch 2, 2 rounds: (arch, strategy, clients,
-#: seq, comm); gemma2-9b at seq 128, past its reduced window (64)
+#: seq, comm); gemma2-9b at seq 128, past its reduced window (64); the
+#: MoE archs' routing compared choice by choice (`route_flips`)
 LM_SMALL = dict(iters=2, tau=2, batch=2, rounds=2)
 BIDIR_LM = dict(compressor="int8", downlink_compressor="int8",
                 hessian_compressor="int4", participation=0.5)
@@ -3062,6 +3154,12 @@ LM_SMALL_CASES = {
     "gemma2-9b sequential int8": ("gemma2-9b", "sequential", 2, 128,
                                   dict(compressor="int8")),
     "qwen3-14b sequential": ("qwen3-14b", "sequential", 2, 32, {}),
+    "deepseek-v2-lite-16b sequential": ("deepseek-v2-lite-16b",
+                                        "sequential", 2, 32, {}),
+    "deepseek-v2-lite-16b parallel": ("deepseek-v2-lite-16b", "parallel",
+                                      2, 32, {}),
+    "qwen3-moe-235b-a22b sequential": ("qwen3-moe-235b-a22b",
+                                       "sequential", 2, 32, {}),
     "minicpm-2b bidir int8/int8/int4 S=2 of 4": ("minicpm-2b", "parallel",
                                                  4, 32, BIDIR_LM),
     "minicpm-2b int8 EF": ("minicpm-2b", "parallel", 4, 32,
@@ -3108,6 +3206,64 @@ def lm_small_launches(fed, rounds) -> dict:
     return expect(**want)
 
 
+#: a token's first flipped MoE choice between two runs from the same
+#: params is a fault above this share of its top probability (the order
+#: error of fp32 GEMMs)
+FLIP_MARGIN = 1e-5
+
+
+class RouteRecorder:
+    """Records ``(probs, expert_idx)`` of every MoE top-k call of the
+    port (`repro_torch.models.layers.top_k`) while entered, on the
+    host."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.top_k, self.calls = layers, layers.top_k, []
+
+        def recording(x, k):
+            v, i = self.top_k(x, k)
+            self.calls.append((x.detach().float().cpu(), i.cpu()))
+            return v, i
+        layers.top_k = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.top_k = self.top_k
+
+
+def route_flips(label, ref, got, exact):
+    """The (token, k) choices of ``got``'s calls that differ from
+    ``ref``'s (two `RouteRecorder` runs of the same code), each printed
+    with its margin, the gap in probability between the two experts.  In
+    the first ``exact`` calls (the params of both runs the same) a
+    token's first flip above `FLIP_MARGIN` of its top probability is a
+    fault.  Returns the number of flipped choices."""
+    if len(ref) != len(got):
+        raise SystemExit(f"{label}: {len(ref)} top-k calls against "
+                         f"{len(got)}")
+    count, flipped = 0, set()
+    for call, ((p, ri), (_, gi)) in enumerate(zip(ref, got)):
+        rows = torch.nonzero(torch.any(torch.sort(ri, -1)[0]
+                                       != torch.sort(gi, -1)[0], -1))
+        for tok in map(tuple, rows.tolist()):
+            a = set(ri[tok].tolist()) - set(gi[tok].tolist())
+            b = set(gi[tok].tolist()) - set(ri[tok].tolist())
+            top = float(p[tok].max())
+            for ea, eb in zip(sorted(a), sorted(b)):
+                margin = abs(float(p[tok][ea]) - float(p[tok][eb]))
+                first = tok not in flipped
+                print(f"{label}: top-k call {call}, token {tok}: expert "
+                      f"{ea} on the CPU, {eb} on the card, margin {margin} "
+                      f"of top {top}" + ("" if first else " (follows)"))
+                count += 1
+                if call < exact and first and margin > FLIP_MARGIN * top:
+                    raise SystemExit(f"{label}: a flip at margin {margin} "
+                                     f"of top {top} is not a near-tie")
+            flipped.add(tok)
+    return count
+
+
 def lm_small_case(device, label):
     """One `LM_SMALL_CASES` run, card against CPU: the same weights,
     batches, GNB noise and comm draws; losses within rtol 1e-4 / atol
@@ -3115,7 +3271,11 @@ def lm_small_case(device, label):
     `SMALL_MAX_FLIPS` coordinates a buffer, each within one move of its
     streams (`ScaleProbe`: a quant step, a threshold, twice a SignSGD
     scale; none on a lossless round).  Returns the card's launches,
-    asserted exactly (`lm_small_launches`)."""
+    asserted exactly (`lm_small_launches`).  MoE archs: every top-k
+    call's choices compared (`route_flips`; the first forward of round 0
+    starts from the same params), and a parameter coordinate may also
+    move by a flipped Sophia clip (at m near 0, where the GEMMs' order
+    error sets the sign: ``2 lr J / C`` a round)."""
     from repro_torch.configs import get_model_config
     from repro_torch.models.transformer import LMTask
     arch, strategy, C, seq, comm_kw = LM_SMALL_CASES[label]
@@ -3132,7 +3292,8 @@ def lm_small_case(device, label):
     states = {key: e.pack_state(e.init_from_params(
         {k: v.to(e.device) for k, v in params.items()}))
         for key, e in engines.items()}
-    flips, launches = [], {}
+    flips, launches, route = [], {}, []
+    moe = cfg.moe is not None
     for r in range(sm["rounds"]):
         b = syn.make_token_batch(gen("cpu", SEED + 20 + r), C, sm["batch"],
                                  seq, cfg.vocab_size)
@@ -3142,14 +3303,15 @@ def lm_small_case(device, label):
         cnoise = (None if engines["cpu"].uses_direct_path() else
                   small_comm_noise(engines["cpu"], states["cpu"], r,
                                    {"clients": C}))
-        losses, steps = {}, {}
+        losses, steps, calls = {}, {}, {}
         for key, engine in engines.items():
             dev = engine.device
             reset_launches()
-            with ScaleProbe(fed.comm) as probe:
+            with ScaleProbe(fed.comm) as probe, RouteRecorder() as rec:
                 states[key], m = engine.round(
                     states[key], {k: v.to(dev) for k, v in b.items()},
                     gumbel=g.to(dev), comm_noise=cnoise)
+            calls[key] = rec.calls
             losses[key] = float(m["loss"])
             if key == "card":
                 for k, v in launch_counts().items():
@@ -3159,6 +3321,11 @@ def lm_small_case(device, label):
         np.testing.assert_allclose(
             losses["card"], losses["cpu"], rtol=SMALL_RTOL, atol=SMALL_ATOL,
             err_msg=f"lm small check {label} round {r}: loss")
+        if moe:
+            route.append(route_flips(
+                f"lm small check {label} round {r}", calls["cpu"],
+                calls["card"], cfg.num_layers if r == 0 else 0))
+            steps["clip"] = 2 * fed.lr * sm["iters"] * (r + 1) / C
         flips.append(flip_band(f"lm small check {label} round {r}",
                                state_buffers(states["cpu"]),
                                state_buffers(states["card"]), steps))
@@ -3169,7 +3336,8 @@ def lm_small_case(device, label):
     print(f"lm small check ({label}, reduced, fp32, card vs CPU): card "
           f"agrees within rtol {SMALL_RTOL} / atol {SMALL_ATOL} but for "
           f"coordinates one move off (per buffer, rounds 1-2: {flips}); "
-          f"launches {({k: v for k, v in launches.items() if v})}")
+          f"launches {({k: v for k, v in launches.items() if v})}"
+          + (f"; flipped MoE choices per round {route}" if moe else ""))
     return launches
 
 
@@ -3226,30 +3394,31 @@ def time_lm_kernels(device):
 
     * row 2 at one client's slice of minicpm-2b x 2 layers, ``(1,
       395724, 1024)``;
-    * row 1 at gemma2-9b x 2 layers' packed ``(1283104, 1024)``: θ, m,
-      h, g, ĥ read, θ, m, h written, 32 B a coordinate;
-    * row 4 at the same shape: x and the noise read, x̂ written (and the
-      row scales), 12 B a coordinate;
+    * row 1 at gemma2-9b x 2 layers' packed ``(1283104, 1024)`` and at
+      deepseek-v2-lite-16b x 2 layers' ``(1551883, 1024)``: θ, m, h, g,
+      ĥ read, θ, m, h written, 32 B a coordinate;
+    * row 4 at the same shapes: x and the noise read, x̂ written (and
+      the row scales), 12 B a coordinate;
     * row 5 at minicpm-2b's cohort of 4, ``(4, 395724, 1024)``: 12 B a
       coordinate.
 
-    fp32 throughout.  Returns name -> timing."""
+    fp32 throughout.  Returns (name, LM slice) -> timing."""
     lr = torch.tensor(LR)
     out = {}
     card = card_info()
 
-    def report(key, t, err):
-        print(f"lm slice {key}: {t['ms']} ms against a {t['bound_ms']} ms "
-              f"bound ({t['bound_ms'] / t['ms']} of it), plain "
-              f"{t['plain_ms']} ms, max |err| {err}; {card}")
-        out[key] = t
+    def report(key, arch, t, err):
+        print(f"lm slice {key} ({arch}): {t['ms']} ms against a "
+              f"{t['bound_ms']} ms bound ({t['bound_ms'] / t['ms']} of it), "
+              f"plain {t['plain_ms']} ms, max |err| {err}; {card}")
+        out[key, arch] = t
 
     R, C = LM_PACKED
     ins = lm_sophia_inputs((1, R, C), device, SEED + 98)
     err = lm_same_bits("lm slice", "sophia_update_batched",
                        tk.sophia_update_batched(*ins, 1, lr, **HP),
                        lambda a: sophia_update_ref(*a, 1, lr=lr, **HP), ins)
-    report("sophia_update_batched", time_pair(
+    report("sophia_update_batched", LM_ARCH, time_pair(
         "sophia_update_batched (LM slice: one client of minicpm-2b x 2 "
         "layers)",
         lambda i: tk.sophia_update_batched(*ins, 1, lr, **HP),
@@ -3259,23 +3428,26 @@ def time_lm_kernels(device):
     del ins
     torch.cuda.empty_cache()
 
-    R, C = SEQ_PACKED
-    ins = lm_sophia_inputs((R, C), device, SEED + 97)
-    err = lm_same_bits("lm slice", "sophia_update_flat",
-                       tk.sophia_update_flat(*ins, 1, lr, **HP),
-                       lambda a: sophia_update_ref(*a, 1, lr=lr, **HP), ins)
-    report("sophia_update_flat", time_pair(
-        "sophia_update_flat (LM slice: gemma2-9b x 2 layers)",
-        lambda i: tk.sophia_update_flat(*ins, 1, lr, **HP),
-        lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
-        ins, ins[:3], SOPHIA_OPS, plain_chunk=LM_PLAIN_CHUNK,
-        launches=LM_TIMED_LAUNCHES), err)
-    del ins
-    torch.cuda.empty_cache()
+    for arch, (R, C) in ((SEQ_ARCH, SEQ_PACKED), (MOE_ARCH, MOE_PACKED)):
+        ins = lm_sophia_inputs((R, C), device, SEED + 97)
+        err = lm_same_bits("lm slice", "sophia_update_flat",
+                           tk.sophia_update_flat(*ins, 1, lr, **HP),
+                           lambda a: sophia_update_ref(*a, 1, lr=lr, **HP),
+                           ins)
+        report("sophia_update_flat", arch, time_pair(
+            f"sophia_update_flat (LM slice: {arch} x 2 layers)",
+            lambda i: tk.sophia_update_flat(*ins, 1, lr, **HP),
+            lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
+            ins, ins[:3], SOPHIA_OPS, plain_chunk=LM_PLAIN_CHUNK,
+            launches=LM_TIMED_LAUNCHES), err)
+        del ins
+        torch.cuda.empty_cache()
 
-    for name, shape in (("quant_roundtrip_flat", SEQ_PACKED),
-                        ("quant_roundtrip_batched", (LM_CLIENTS,)
-                         + LM_PACKED)):
+    for name, arch, shape in (
+            ("quant_roundtrip_flat", SEQ_ARCH, SEQ_PACKED),
+            ("quant_roundtrip_flat", MOE_ARCH, MOE_PACKED),
+            ("quant_roundtrip_batched", LM_ARCH,
+             (LM_CLIENTS,) + LM_PACKED)):
         g = gen(device, SEED + 96)
         x = torch.randn(shape, generator=g, device=device) * 1e-3
         noise = torch.rand(shape, generator=g, device=device)
@@ -3285,10 +3457,10 @@ def time_lm_kernels(device):
         err = lm_same_bits(
             "lm slice", name, entry(x, noise, scale, qmax=127),
             lambda a: kref.quant_roundtrip_ref(*a, qmax=127), ins)
-        report(name, time_pair(
-            f"{name} (LM slice: "
-            + ("gemma2-9b x 2 layers" if name.endswith("flat") else
-               "minicpm-2b x 2 layers, 4 clients") + ")",
+        report(name, arch, time_pair(
+            f"{name} (LM slice: {arch} x 2 layers"
+            + ("" if name.endswith("flat") else f", {LM_CLIENTS} clients")
+            + ")",
             lambda i: entry(x, noise, scale, qmax=127),
             lambda i: kref.quant_roundtrip_ref(x, noise, scale, qmax=127),
             ins, [x], QUANT_OPS["quant"], plain_chunk=LM_PLAIN_CHUNK,
@@ -3339,11 +3511,16 @@ def activity_op(name: str) -> str:
                                    if "gpu_kernel_impl" not in o)) or "-"
 
 
-def profile_call(run, steady_s, top=8):
+def profile_call(run, steady_s, top=8, spans=()):
     """``run()`` under `torch.profiler`: device time by activity name
-    (returned, name -> (us, count)), and the device's busy share of the
+    (name -> (us, count)), and the device's busy share of the
     unprofiled ``steady_s``; the ``top`` activities and the time of each
-    class (`ACTIVITY_CLASSES`)."""
+    class (`ACTIVITY_CLASSES`).  The device ranges of
+    `torch.profiler.record_function` are not device activities and
+    count in none of these; for each range name of ``spans`` the device
+    time of the activities inside its ranges is returned (a range runs
+    from the first to the last kernel launched inside it, and may hold
+    idle gaps).  Returns ``(by_name, {span: us})``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sync()
@@ -3354,10 +3531,30 @@ def profile_call(run, steady_s, top=8):
         sync()
         wall = time.perf_counter() - t0
     by_name: dict = {}
+    ranges = {name: [] for name in spans}
+    acts = []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        if e.device_type != DeviceType.CUDA:
+            continue
+        tr = e.time_range
+        if getattr(e, "is_user_annotation", False):
+            if e.name in ranges:
+                ranges[e.name].append((tr.start, tr.end))
+            continue
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + tr.elapsed_us(), n + 1)
+        acts.append((tr.start, tr.end))
+    acts.sort()
+    starts = [a for a, _ in acts]
+    span_us = {}
+    for name, rs in ranges.items():
+        total = 0.0
+        for lo, hi in rs:
+            i = bisect.bisect_left(starts, lo)
+            while i < len(acts) and acts[i][0] < hi:
+                total += min(acts[i][1], hi) - acts[i][0]
+                i += 1
+        span_us[name] = total
     if not by_name:
         raise SystemExit("profile: the profiler recorded no device time")
     busy_us = sum(t for t, _ in by_name.values())
@@ -3383,7 +3580,7 @@ def profile_call(run, steady_s, top=8):
     for rank, name, t, n in comm:
         print(f"  comm stage, rank {rank + 1}: {t:10.1f} us  {n:5d}x  "
               f"{name[:80]}")
-    return by_name
+    return by_name, span_us
 
 
 def main() -> None:
@@ -3427,7 +3624,7 @@ def main() -> None:
     print(f"steady seconds per round by path: {json.dumps(steady)}")
     lm_launches = {"lm_small_check": lm_small_check(device),
                    "lm_train": lm_train(device), "lm_comm": lm_comm(device),
-                   "lm_seq": lm_seq(device)}
+                   "lm_seq": lm_seq(device), "lm_moe": lm_moe(device)}
     for path_launches in lm_launches.values():
         for k, v in path_launches.items():
             launches[k] += v
@@ -3456,12 +3653,13 @@ def main() -> None:
           "sorts, it does not trim or weight)")
     # the narrow forms of rows 2, 5 and 9: beside the 15, not among them
     print(json.dumps({"narrow_kernels": narrow_kernels}))
-    # the LM slice's shapes of rows 1, 2, 4 and 5, with each LM phase's
+    # the LM slices' shapes of rows 1, 2, 4 and 5, with each LM phase's
     # launches of them: beside the 15, not among them
     print(json.dumps({"lm_kernels": [
-        dict(name=name, launches={phase: counts[name] for phase, counts
-                                  in lm_launches.items() if counts[name]},
-             **t) for name, t in lm_timing.items()]}))
+        dict(name=name, slice=arch,
+             launches={phase: counts[name] for phase, counts
+                       in lm_launches.items() if counts[name]},
+             **t) for (name, arch), t in lm_timing.items()]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ nested `CommConfig`, `SchedConfig`, `RobustConfig` and `ObsConfig`,
 with the field names and defaults of the JAX package's
 ``configs/base.py``.  `repro_torch.core.fed.FedEngine` runs every
 setting the JAX engine runs and raises `ValueError` for unknown ones;
-`repro_torch.models.transformer` runs the dense decoder members of the
-model zoo and raises `NotImplementedError` for the other families.
+`repro_torch.models.transformer` runs the attention-block decoders of
+the model zoo (dense, MLA, MoE) and raises `NotImplementedError` for
+the other families.
 """
 from __future__ import annotations
 

@@ -20,8 +20,9 @@ and a resume's restore are timed on the host clock after a synchronise
 and printed with the bytes written.
 
 The arch file's ``FED`` overrides set the schedule and, unlike the JAX
-CLI, which passes only ``schedule`` on, the strategy too: gemma2-9b and
-qwen3-14b train on the sequential strategy, as their configs ask.
+CLI, which passes only ``schedule`` on, the strategy too: gemma2-9b,
+qwen3-14b, deepseek-v2-lite-16b and qwen3-moe-235b-a22b train on the
+sequential strategy, as their configs ask.
 
 Randomness: the weights, the token batches and each round's GNB noise
 come from `torch.Generator`s seeded from ``--seed``.  `main` also takes

@@ -1,7 +1,8 @@
-"""Neural-net primitives of the LM zoo, the dense subset: the port of
-the JAX package's ``models/layers.py`` for the dense decoder (GQA / MHA
+"""Neural-net primitives of the LM zoo: the port of the JAX package's
+``models/layers.py`` for the attention-block decoders (GQA / MHA
 attention with RoPE, qk-norm, a sliding window and a logit softcap;
-swiglu / geglu / gelu FFN, RMSNorm).
+DeepSeek-V2's MLA attention; swiglu / geglu / gelu FFN; the
+capacity-routed MoE FFN with shared experts; RMSNorm).
 
 Everything is functional.  A parameter tree is a flat
 ``dict[str, Tensor]`` keyed by ``/``-joined paths (``"mixer/wq"``),
@@ -339,7 +340,71 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# dense FFN
+# MLA attention (DeepSeek-V2): q per head, k and v up-projected from a
+# normed latent, a RoPE key shared by the heads
+# --------------------------------------------------------------------------
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype) -> Params:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": dense_init(generator, D, H * qk_dim, dtype),
+        "w_dkv": dense_init(generator, D,
+                            m.kv_lora_rank + m.qk_rope_head_dim, dtype),
+        "kv_norm": torch.ones(m.kv_lora_rank, dtype=dtype,
+                              device=generator.device),
+        "w_ukv": dense_init(generator, m.kv_lora_rank,
+                            H * (m.qk_nope_head_dim + m.v_head_dim), dtype),
+        "wo": dense_init(generator, H * m.v_head_dim, D, dtype),
+    }
+
+
+def _mla_kv(p: Params, cfg: ModelConfig, ckv_norm: torch.Tensor,
+            kpe: torch.Tensor, H: int):
+    """Up-project the latent to per-head k and v: ``ckv_norm (*lead, B,
+    S, rank)``, ``kpe (*lead, B, S, rd)`` -> k ``(..., H, nope + rd)``,
+    v ``(..., H, v_head_dim)``; the RoPE key is broadcast to every
+    head."""
+    m = cfg.mla
+    nope = m.qk_nope_head_dim
+    kv = matmul(ckv_norm, p["w_ukv"]).reshape(
+        ckv_norm.shape[:-1] + (H, nope + m.v_head_dim))
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k_pe = kpe[..., None, :].expand(kpe.shape[:-1]
+                                    + (H, m.qk_rope_head_dim))
+    return torch.cat([k_nope, k_pe], dim=-1), v
+
+
+def mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """x (*lead, B, S, D), positions (B, S); full sequence (the latent
+    cache of decode comes with the serving slice).  Scores are scaled by
+    ``1/sqrt(nope + rope)``, and the dispatcher gets no chunking options
+    of the config (the JAX package's MLA passes none).  Returns the
+    mixer output."""
+    m = cfg.mla
+    H = cfg.num_heads
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    tok = x.shape[:-1]
+    q = matmul(x, p["wq"]).reshape(tok + (H, nope + rope))
+    q_pe = apply_rope(q[..., nope:], positions, cfg, rot_dim=rope)
+    q = torch.cat([q[..., :nope], q_pe], dim=-1)
+
+    dkv = matmul(x, p["w_dkv"])
+    ckv = rms_norm(dkv[..., :m.kv_lora_rank], p["kv_norm"])
+    kpe = apply_rope(dkv[..., None, m.kv_lora_rank:], positions, cfg,
+                     rot_dim=rope)[..., 0, :]
+    k, v = _mla_kv(p, cfg, ckv, kpe, H)
+    q_pos = positions[0]                    # (S,)
+    out = attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=cfg.causal,
+                    scale=1.0 / math.sqrt(nope + rope))
+    return matmul(out.reshape(tok + (H * m.v_head_dim,)), p["wo"])
+
+
+# --------------------------------------------------------------------------
+# dense FFN + MoE
 # --------------------------------------------------------------------------
 
 def init_ffn(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
@@ -357,3 +422,130 @@ def ffn_apply(p: Params, kind: str, x: torch.Tensor) -> torch.Tensor:
     up = matmul(x, p["w_up"])
     return matmul(ffn_act(kind, gate if gate is not None else up, up),
                   p["w_down"])
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype) -> Params:
+    """The router (fp32 whatever the model's dtype, as in JAX), the
+    experts' weights stacked ``(E, d_in, d_out)``, and the shared
+    experts as one dense FFN under ``shared/``."""
+    mo = cfg.moe
+    D, E, F_ = cfg.d_model, mo.num_experts, mo.d_ff_expert
+    p = {
+        "router": dense_init(generator, D, E, torch.float32),
+        "w_gate": stacked_dense_init(generator, E, D, F_, dtype),
+        "w_up": stacked_dense_init(generator, E, D, F_, dtype),
+        "w_down": stacked_dense_init(generator, E, F_, D, dtype),
+    }
+    if mo.num_shared:
+        p.update(prefixed("shared", init_ffn(
+            generator, D, mo.num_shared * mo.d_ff_shared, cfg.ffn_kind,
+            dtype)))
+    return p
+
+
+#: the profiler range around the MoE's one-hot dispatch and combine
+#: einsums, forward and backward (`chip_smoke.py` reads its share)
+ROUTE_SPAN = "moe dispatch/combine"
+
+
+class _RouteEinsum(torch.autograd.Function):
+    """``torch.einsum("A,B->O", a, b)`` inside `ROUTE_SPAN`, its two
+    gradients ``einsum("O,B->A")`` and ``einsum("A,O->B")`` too (every
+    index of each operand appears in the other or in the output)."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b):
+        ctx.save_for_backward(a, b)
+        ctx.eq = eq
+        with torch.profiler.record_function(ROUTE_SPAN):
+            return torch.einsum(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, o = ctx.eq.split("->")
+        ia, ib = ins.split(",")
+        ga = gb = None
+        with torch.profiler.record_function(ROUTE_SPAN):
+            if ctx.needs_input_grad[1]:
+                ga = torch.einsum(f"{o},{ib}->{ia}", g, b)
+            if ctx.needs_input_grad[2]:
+                gb = torch.einsum(f"{ia},{o}->{ib}", a, g)
+        return None, ga, gb
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest in
+    descending order, ties to the lower index (a stable descending sort;
+    `torch.topk` promises no order among ties).  Returns (values,
+    indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(cfg: ModelConfig, probs: torch.Tensor):
+    """The router's choices from its probabilities ``probs (*lead, B, S,
+    E)``: ``expert_idx`` ``(*lead, B, S, K)`` (top-k) and the ``(*lead,
+    B, S, E, C)`` ``combine`` weights, each kept choice's renormalised
+    gate at its capacity slot.  Selections are taken in ``kk`` order,
+    each expert's slots filled along the sequence; a choice past its
+    expert's capacity C is dropped (a zero row).  The JAX package's
+    ``moe_apply`` bookkeeping, a client axis in front."""
+    mo = cfg.moe
+    S, E = probs.shape[-2:]
+    K = mo.top_k
+    C = max(int(S * K / E * mo.capacity_factor), 1)
+    gate_vals, expert_idx = top_k(probs, K)
+    gate_vals = gate_vals / torch.clamp(
+        torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
+    combine = torch.zeros(probs.shape + (C,), dtype=torch.float32,
+                          device=probs.device)
+    fill = torch.zeros(probs.shape[:-2] + (E,), dtype=torch.float32,
+                       device=probs.device)                  # tokens/expert
+    slots = torch.arange(C, device=probs.device)
+    for kk in range(K):
+        mask_k = F.one_hot(expert_idx[..., kk], E).to(torch.float32)
+        pos_in_e = (torch.cumsum(mask_k, dim=-2) - mask_k
+                    + fill[..., None, :])
+        keep = (pos_in_e < C) * mask_k
+        # jax.nn.one_hot's rule: a position >= C has no slot (a zero
+        # row), where F.one_hot would raise
+        slot = (pos_in_e.to(torch.int32)[..., None] == slots).to(
+            torch.float32)
+        combine = combine + (gate_vals[..., kk, None, None]
+                             * keep[..., None] * slot)
+        fill = fill + torch.sum(mask_k, dim=-2)
+    return expert_idx, combine
+
+
+def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Capacity-based top-k routing with one-hot dispatch and combine
+    einsums (the JAX package's ``moe_apply``), for ``x (*lead, B, S,
+    D)`` and weights ``(*lead, ...)``; each expert is one GEMM of its
+    ``(B*C, D)`` slots (E acts as one more leading axis of `matmul`).
+    Returns ``(out, aux)``: ``aux`` the Switch-style load-balance loss,
+    one a leading index ``(*lead,)``."""
+    mo = cfg.moe
+    E = mo.num_experts
+    logits = matmul(x.to(torch.float32), p["router"])       # (.., B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    expert_idx, combine = moe_route(cfg, probs)
+    dispatch = (combine > 0).to(x.dtype)
+
+    xin = _RouteEinsum.apply("...bsec,...bsd->...ebcd", dispatch, x)
+    h_gate = matmul(xin, p["w_gate"])                        # (.., E, B, C, F)
+    h_up = matmul(xin, p["w_up"])
+    eout = matmul(ffn_act(cfg.ffn_kind, h_gate, h_up), p["w_down"])
+    out = _RouteEinsum.apply("...bsec,...ebcd->...bsd", combine.to(x.dtype),
+                             eout)
+    if mo.num_shared:
+        out = out + ffn_apply(subtree(p, "shared"), cfg.ffn_kind, x)
+
+    # Switch-style load-balance auxiliary loss, per leading index
+    frac_tokens = torch.mean(torch.sum(F.one_hot(expert_idx, E).to(
+        torch.float32), dim=-2), dim=(-3, -2))
+    frac_probs = torch.mean(probs, dim=(-3, -2))
+    aux = mo.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs,
+                                           dim=-1)
+    return out, aux

@@ -1,25 +1,30 @@
-"""The decoder stack of the LM zoo, the dense members: the port of the
-JAX package's ``models/transformer.py`` for configs whose every block
-is an attention block (``attn``, or gemma2's alternating ``local`` /
-``global``) with a dense FFN: minicpm-2b, chatglm3-6b, gemma2-9b,
-qwen3-14b.  The features of those configs run as in JAX: a sliding
-window on ``local`` blocks (``long_mode_swa_only`` makes every
-``global`` block ``local``), the attention and final logit softcaps,
-post-norms (``post_ln1`` after the mixer, ``post_ln2`` after the FFN,
-before each residual add), qk-norm, GeGLU.
+"""The decoder stack of the LM zoo, the attention-block members: the
+port of the JAX package's ``models/transformer.py`` for configs whose
+every block is an attention block (``attn``, or gemma2's alternating
+``local`` / ``global``) with an FFN: minicpm-2b, chatglm3-6b,
+gemma2-9b, qwen3-14b (dense), deepseek-v2-lite-16b (MLA attention, MoE
+with shared experts) and qwen3-moe-235b-a22b (MoE).  The features of
+those configs run as in JAX: a sliding window on ``local`` blocks
+(``long_mode_swa_only`` makes every ``global`` block ``local``), the
+attention and final logit softcaps, post-norms (``post_ln1`` after the
+mixer, ``post_ln2`` after the FFN, before each residual add), qk-norm,
+GeGLU; with ``cfg.mla`` every attention block is an MLA block, with
+``cfg.moe`` every FFN a capacity-routed MoE whose Switch-style aux
+loss, summed over the layers, is added to the loss.
 
 Parameters are the flat ``/``-keyed dict of `repro_torch.models.layers`:
 ``embed``, ``final_norm``, ``lm_head`` (untied configs), and the blocks
 of block-pattern position ``pi`` stacked on a leading layer axis under
-``blocks_{pi}/...`` (``blocks_0/mixer/wq`` is ``(L, D, H*hd)``), as the
-JAX package stacks them for ``lax.scan``.  `forward` loops over that
-axis where JAX scans.  Every function also takes parameters with a
-leading client axis ``(N, ...)`` (batch leaves ``(N, B, S)``): the loss
+``blocks_{pi}/...`` (``blocks_0/mixer/wq`` is ``(L, D, H*hd)``, an
+expert's ``blocks_0/ffn/w_gate`` ``(L, E, D, F)``), as the JAX package
+stacks them for ``lax.scan``.  `forward` loops over that axis where JAX
+scans.  Every function also takes parameters with a leading client axis
+``(N, ...)`` (batch leaves ``(N, B, S)``): the loss (and the aux loss)
 then comes back per client, shape ``(N,)``.
 
 Every other family or feature raises `NotImplementedError` naming
-ROADMAP queue 1 (g): MLA, MoE, the recurrent mixers (rec / m / s),
-M-RoPE, embedding inputs and blocks without an FFN.
+ROADMAP queue 1 (g): the recurrent mixers (rec / m / s), M-RoPE,
+embedding inputs and blocks without an FFN.
 
 GNB label sampling goes through the RNG seam: ``sampled_loss`` takes
 gumbel noise of the logits' shape and samples ``argmax(logits +
@@ -47,16 +52,13 @@ ATTN_KINDS = ("attn", "local", "global")
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: ROADMAP queue 1 (g) "
-        "(the port runs the dense attn-block decoders)")
+        "(the port runs the attention-block decoders: GQA or MLA "
+        "attention, a dense or MoE FFN)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` for a family or feature outside the
-    dense decoder this module runs."""
-    if cfg.mla is not None:
-        raise _not_ported(f"{cfg.name}: MLA attention")
-    if cfg.moe is not None:
-        raise _not_ported(f"{cfg.name}: the MoE FFN")
+    attention-block decoders this module runs."""
     for kind in cfg.block_pattern:
         if kind in ("rec", "m", "s"):
             raise _not_ported(f"{cfg.name}: the recurrent mixer {kind!r}")
@@ -66,8 +68,15 @@ def check_supported(cfg: ModelConfig) -> None:
                         ("embedding_inputs", "embedding inputs")):
         if getattr(cfg, field):
             raise _not_ported(f"{cfg.name}: {what}")
-    if cfg.d_ff <= 0:
+    if cfg.d_ff <= 0 and cfg.moe is None:
         raise _not_ported(f"{cfg.name}: a block without an FFN")
+
+
+def _mixer_kind(cfg: ModelConfig, kind: str) -> str:
+    """Every attention kind is an MLA block when ``cfg.mla`` is set."""
+    if kind in ATTN_KINDS and cfg.mla is not None:
+        return "mla"
+    return kind
 
 
 def _effective_kind(cfg: ModelConfig, kind: str) -> str:
@@ -89,30 +98,45 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
     def ones():
         return torch.ones(cfg.d_model, dtype=dtype, device=dev)
     p: Params = {"ln1": ones()}
-    p.update(L.prefixed("mixer", L.init_attention(generator, cfg, dtype)))
+    init_mixer = (L.init_mla if _mixer_kind(cfg, kind) == "mla"
+                  else L.init_attention)
+    p.update(L.prefixed("mixer", init_mixer(generator, cfg, dtype)))
     if cfg.post_norm:
         p["post_ln1"] = ones()
     p["ln2"] = ones()
-    p.update(L.prefixed("ffn", L.init_ffn(generator, cfg.d_model, cfg.d_ff,
-                                          cfg.ffn_kind, dtype)))
+    ffn = (L.init_moe(generator, cfg, dtype) if cfg.moe is not None else
+           L.init_ffn(generator, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                      dtype))
+    p.update(L.prefixed("ffn", ffn))
     if cfg.post_norm:
         p["post_ln2"] = ones()
     return p
 
 
 def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns ``(x, aux)``: ``aux`` the MoE's aux loss, None for a
+    dense FFN."""
+    kind = _effective_kind(cfg, kind)
     h = L.rms_norm(x, p["ln1"])
-    mix = L.attention_apply(L.subtree(p, "mixer"), cfg, h, positions,
-                            kind=_effective_kind(cfg, kind))
+    mixer = L.subtree(p, "mixer")
+    if _mixer_kind(cfg, kind) == "mla":
+        mix = L.mla_apply(mixer, cfg, h, positions)
+    else:
+        mix = L.attention_apply(mixer, cfg, h, positions, kind=kind)
     if cfg.post_norm:
         mix = L.rms_norm(mix, p["post_ln1"])
     x = x + cfg.residual_scale * mix
     h = L.rms_norm(x, p["ln2"])
-    f = L.ffn_apply(L.subtree(p, "ffn"), cfg.ffn_kind, h)
+    aux = None
+    if cfg.moe is not None:
+        f, aux = L.moe_apply(L.subtree(p, "ffn"), cfg, h)
+    else:
+        f = L.ffn_apply(L.subtree(p, "ffn"), cfg.ffn_kind, h)
     if cfg.post_norm:
         f = L.rms_norm(f, p["post_ln2"])
-    return x + cfg.residual_scale * f
+    return x + cfg.residual_scale * f, aux
 
 
 # --------------------------------------------------------------------------
@@ -184,27 +208,39 @@ def _default_positions(cfg: ModelConfig, B: int, S: int, offset: int = 0,
     return pos[None].expand(B, S)
 
 
+def _blocks(params: Params, cfg: ModelConfig):
+    """Each block's params and kind in the JAX package's order: every
+    layer of pattern position 0 (its scan), then of position 1, ...,
+    then the remainder blocks."""
+    n_lead = _n_lead(params)
+    for pi, kind in enumerate(cfg.block_pattern):
+        stacked = L.subtree(params, f"blocks_{pi}")
+        for layer in range(cfg.pattern_reps):
+            yield {k: v.select(n_lead, layer)
+                   for k, v in stacked.items()}, kind
+    for ri, kind in enumerate(cfg.pattern_remainder):
+        yield L.subtree(params, f"rem_{ri}"), kind
+
+
 def forward(params: Params, cfg: ModelConfig, batch
             ) -> Tuple[torch.Tensor, None, Optional[torch.Tensor]]:
     """Full-sequence forward (train).  Returns ``(logits, None, aux)``:
-    no cache (decode comes with the serving slice) and no auxiliary loss
-    (a dense FFN has none: None where the JAX package returns 0)."""
+    no cache (decode comes with the serving slice); ``aux`` the MoE's
+    aux loss summed over the layers in order (``(*lead,)``), None for a
+    dense FFN (where the JAX package returns 0)."""
     check_supported(cfg)
     x = _embed_in(params, cfg, batch)
     B, S = x.shape[-3], x.shape[-2]
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(cfg, B, S, device=x.device)
-    n_lead = _n_lead(params)
-    for pi, kind in enumerate(cfg.block_pattern):
-        stacked = L.subtree(params, f"blocks_{pi}")
-        for layer in range(cfg.pattern_reps):
-            bp = {k: v.select(n_lead, layer) for k, v in stacked.items()}
-            x = apply_block(bp, cfg, kind, x, positions)
-    for ri, kind in enumerate(cfg.pattern_remainder):
-        x = apply_block(L.subtree(params, f"rem_{ri}"), cfg, kind, x,
-                        positions)
-    return _logits_out(params, cfg, x), None, None
+    aux = None
+    for bp, kind in _blocks(params, cfg):
+        x, a = apply_block(bp, cfg, kind, x, positions)
+        if a is not None:
+            # the JAX scan's carry: 0 + a_0 + a_1 + ... (0 + a_0 is a_0)
+            aux = a if aux is None else aux + a
+    return _logits_out(params, cfg, x), None, aux
 
 
 # --------------------------------------------------------------------------
@@ -238,6 +274,10 @@ def sample_labels(logits: torch.Tensor, vocab_size: int,
     return torch.argmax(gumbel + _mask_pad(logits, vocab_size), dim=-1)
 
 
+def _plus(ce: torch.Tensor, aux: Optional[torch.Tensor]) -> torch.Tensor:
+    return ce if aux is None else ce + aux
+
+
 class LMTask:
     """Bundles init / loss / sampled loss of an LM for the federated
     engine.  Batches: ``tokens`` and ``labels`` ``(*lead, B, S)``."""
@@ -256,16 +296,18 @@ class LMTask:
         return logits, aux
 
     def loss(self, params: Params, batch, rng=None):
-        # a dense decoder has no auxiliary loss (the MoE adds one)
-        logits, _ = self.logits(params, batch)
-        return cross_entropy(logits, batch["labels"], self.cfg.vocab_size)
+        """CE plus the MoE's aux loss (a dense decoder has none)."""
+        logits, aux = self.logits(params, batch)
+        return _plus(cross_entropy(logits, batch["labels"],
+                                   self.cfg.vocab_size), aux)
 
     def sampled_loss(self, params: Params, batch, gumbel: torch.Tensor):
         """GNB inner loss: CE against labels sampled from the model
-        itself (``gumbel``: the noise of the logits' shape)."""
-        logits, _ = self.logits(params, batch)
+        itself (``gumbel``: the noise of the logits' shape), plus the
+        aux loss, as in JAX."""
+        logits, aux = self.logits(params, batch)
         y = sample_labels(logits.detach(), self.cfg.vocab_size, gumbel)
-        return cross_entropy(logits, y, self.cfg.vocab_size)
+        return _plus(cross_entropy(logits, y, self.cfg.vocab_size), aux)
 
     def gnb_batch_size(self, batch) -> int:
         lab = batch["labels"]

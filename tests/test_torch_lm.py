@@ -52,6 +52,8 @@ from repro_torch.models import transformer as TT
 RTOL, ATOL = 1e-5, 1e-6
 #: the dense decoders the port runs
 DENSE = ("minicpm-2b", "chatglm3-6b", "gemma2-9b", "qwen3-14b")
+#: the MoE decoders it runs (tests/test_torch_lm_moe.py)
+MOE = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
 B, S = 2, 24
 #: the sliding window of the reduced configs that have one, below `S`
 WINDOW = 16
@@ -345,7 +347,7 @@ def test_token_batches():
 
 
 @pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
-                                  if a not in DENSE])
+                                  if a not in DENSE + MOE])
 def test_unported_families_raise(arch):
     cfg = configs.get_model_config(arch).reduced(d_model=128)
     with pytest.raises(NotImplementedError, match=r"queue 1 \(g\)"):

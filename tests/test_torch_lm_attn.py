@@ -151,13 +151,15 @@ def test_post_norm_block_matches_jax(kind):
     tp = {k: _t(v) for k, v in flatten(bp).items()}
     want, _, _ = JT.apply_block(bp, jcfg, kind, jnp.asarray(x),
                                 jnp.asarray(_pos(S)))
-    got = TT.apply_block(tp, tcfg, kind, _t(x), torch.tensor(_pos(S)))
+    got, aux = TT.apply_block(tp, tcfg, kind, _t(x), torch.tensor(_pos(S)))
+    assert aux is None                      # a dense FFN has no aux loss
     # the residual stream is O(1) after each post-norm: the logits' band
     _close(got, want, atol=ATOL * float(np.abs(np.asarray(want)).max()))
     # the post-norms' weights reach the output
     off = dict(tp, post_ln2=torch.ones_like(tp["post_ln2"]))
     assert not torch.allclose(
-        TT.apply_block(off, tcfg, kind, _t(x), torch.tensor(_pos(S))), got)
+        TT.apply_block(off, tcfg, kind, _t(x), torch.tensor(_pos(S)))[0],
+        got)
     # the port's init: the post-norms are ones of (d_model,), and only
     # post-norm configs have them
     init = TT.init_block(torch.Generator().manual_seed(0), tcfg, kind,
