@@ -49,14 +49,22 @@ of MLA attention with a 512-wide latent, 64 routed experts of d_ff 1408
 top-6 and 2 shared, vocab 102,400 untied) the same way (`lm_moe`: its
 peak reckoned by buffer first, the MoE dispatch / combine share of the
 profiled round, the routers fp32 through the checkpoint, the resumed
-round's loss below round 0's on the same batches); holds the
-reduced LMs' rounds on the card against the CPU (`lm_small_check`:
-minicpm-2b, gemma2-9b, qwen3-14b, deepseek-v2-lite-16b and
-qwen3-moe-235b-a22b on their strategies, deepseek also parallel, with
-the MoE routing compared choice by choice; minicpm-2b at bidir
-int8/int8/int4, int8 with EF, top-k and SignSGD with the majority
-vote) and times rows 1, 2, 4 and 5 at the LM slices' shapes
-(`time_lm_kernels`, the ``lm_kernels`` line).
+round's loss below round 0's on the same batches); the recurrent
+mixers at their published widths on their arch's parallel strategy with
+an int8 uplink, 2 clients: recurrentgemma-2b cut to 3 layers (two RG-LRU
+blocks with their causal conv and a local attention block; `lm_rec`)
+and xlstm-1.3b cut to 8 layers (seven mLSTM blocks and an sLSTM block,
+no FFN; `lm_xlstm`), each with its peak reckoned by buffer first
+(`reckon_par_peak`; every LM phase's peak is gated against its
+reckoning), each scan's share of the profiled round and the resumed
+round's loss below round 0's; holds the reduced LMs' rounds on the card
+against the CPU (`lm_small_check`: minicpm-2b, gemma2-9b, qwen3-14b,
+deepseek-v2-lite-16b and qwen3-moe-235b-a22b on their strategies,
+deepseek also parallel, with the MoE routing compared choice by choice;
+minicpm-2b at bidir int8/int8/int4, int8 with EF, top-k and SignSGD with
+the majority vote; recurrentgemma-2b at 3 and 5 layers, xlstm-1.3b with
+and without its FFN) and times rows 1, 2, 4 and 5 at the LM slices'
+shapes (`time_lm_kernels`, the ``lm_kernels`` line).
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
@@ -104,6 +112,8 @@ from repro_torch.kernels import sophia_update as tk  # noqa: E402
 from repro_torch.kernels import stale_accum as tstale  # noqa: E402
 from repro_torch.kernels.ref import sophia_update_ref  # noqa: E402
 from repro_torch.models.layers import ROUTE_SPAN  # noqa: E402
+from repro_torch.models.recurrent import (  # noqa: E402
+    MLSTM_CHUNK, MLSTM_SPAN, RGLRU_SPAN, SLSTM_SPAN)
 from repro_torch.models.small import (CNNTask, MLPTask,  # noqa: E402
                                       gumbel_noise)
 from repro_torch.obs.probes import PROBE_METRICS  # noqa: E402
@@ -2063,16 +2073,30 @@ def state_buffers(state) -> dict:
     return out
 
 
-def flip_band(label, want, got, steps) -> dict:
+def flip_band(label, want, got, steps, free=None) -> dict:
     """Raises unless every buffer of ``got`` is within the small band of
     ``want``'s but for at most `SMALL_MAX_FLIPS` coordinates, each
     within one move of the streams that write it (``steps``, from a
-    `ScaleProbe`); returns the count outside the band per buffer."""
+    `ScaleProbe`); returns the count outside the band per buffer.
+    ``free``: flat coordinates of the params that may each move by a
+    flipped Sophia clip (``steps["clip"]``) outside that count, their m
+    and h (the EMAs of a gradient that is rounding noise) not held."""
     counts, bad = {}, []
     for name, w in want.items():
         band = SMALL_ATOL + SMALL_RTOL * np.abs(w)
         diff = np.abs(got[name] - w)
         out = diff > band
+        if name in ("params", "m", "h") and free is not None and len(free):
+            # m and h carry a leading client axis
+            lead = 1 if name == "params" else w.shape[0]
+            f_out = out.reshape(lead, -1)[:, free]
+            if name == "params" and not np.all(
+                    diff.reshape(-1)[free][f_out[0]]
+                    <= steps["clip"] + band.reshape(-1)[free][f_out[0]]):
+                bad.append(f"params: a free coordinate moved past a "
+                           f"clipped step {steps['clip']}")
+            out = out.copy()
+            out.reshape(lead, -1)[:, free] = False
         step = sum(steps.get(st, 0.0) for st in STEPS_OF[name])
         counts[name] = int(out.sum())
         if counts[name] > SMALL_MAX_FLIPS or not np.all(
@@ -2887,43 +2911,77 @@ SEQ_CLIENTS = 2
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_PARAMS, MOE_PACKED = 1_589_128_192, (1_551_883, 1024)
 MOE_CLIENTS = 2
-#: the LM phases through the CLI: (arch, parameters, packed shape,
-#: clients, extra flags, launches of a run of r rounds).  Launches, from
-#: `FedEngine._round_comm` / `_round_direct`: each local step one Sophia
-#: launch over the cohort (parallel: row 2) or one a client (sequential:
-#: row 1); the int8 uplink with EF off one quant round-trip over the
-#: cohort's deltas (row 5) or one a client (row 4)
+#: slice 13's recurrent paths, each on its arch's FED strategy (parallel),
+#: int8 uplink, 2 clients (C=4 fits neither): recurrentgemma-2b
+#: (arXiv:2402.19427) at its published widths (d_model 2560, RG-LRU width
+#: 2560 with a 4-tap conv, 10 heads of 256 with one kv head, window 2048,
+#: d_ff 7680 GeGLU, vocab 256,000 tied, scale_emb sqrt(2560)), the depth
+#: cut 26 -> 3 layers (one (rec, rec, local) pattern); xlstm-1.3b
+#: (arXiv:2405.04517: d_model 2048, 4 heads; mLSTM width 4096, heads of
+#: 1024; sLSTM heads of 512, up-projection 2730; d_ff 0, FFN-less blocks;
+#: vocab 50,304 untied), the depth cut 48 -> 8 layers (one (m x 7, s)
+#: pattern); seq 256 is two mLSTM chunks
+REC_ARCH, REC_LAYERS = "recurrentgemma-2b", 3
+REC_PARAMS, REC_PACKED = 912_314_880, (890_933, 1024)
+XLSTM_ARCH, XLSTM_LAYERS = "xlstm-1.3b", 8
+XLSTM_PARAMS, XLSTM_PACKED = 773_169_208, (755_049, 1024)
+REC_CLIENTS = 2
+#: the LM phases through the CLI: (arch, layers, parameters, packed
+#: shape, clients, extra flags, launches of a run of r rounds).
+#: Launches, from `FedEngine._round_comm` / `_round_direct`: each local
+#: step one Sophia launch over the cohort (parallel: row 2) or one a
+#: client (sequential: row 1); the int8 uplink with EF off one quant
+#: round-trip over the cohort's deltas (row 5) or one a client (row 4)
 LM_PHASES = {
-    "lm_train": (LM_ARCH, LM_PARAMS, LM_PACKED, LM_CLIENTS, (),
+    "lm_train": (LM_ARCH, LM_LAYERS, LM_PARAMS, LM_PACKED, LM_CLIENTS, (),
                  lambda r: expect(sophia_update_batched=r * LM_ITERS)),
-    "lm_comm": (LM_ARCH, LM_PARAMS, LM_PACKED, LM_CLIENTS,
+    "lm_comm": (LM_ARCH, LM_LAYERS, LM_PARAMS, LM_PACKED, LM_CLIENTS,
                 ("--compressor", "int8"),
                 lambda r: expect(sophia_update_batched=r * LM_ITERS,
                                  quant_roundtrip_batched=r)),
-    "lm_seq": (SEQ_ARCH, SEQ_PARAMS, SEQ_PACKED, SEQ_CLIENTS,
+    "lm_seq": (SEQ_ARCH, LM_LAYERS, SEQ_PARAMS, SEQ_PACKED, SEQ_CLIENTS,
                ("--compressor", "int8"),
                lambda r: expect(
                    sophia_update_flat=r * SEQ_CLIENTS * LM_ITERS,
                    quant_roundtrip_flat=r * SEQ_CLIENTS)),
-    "lm_moe": (MOE_ARCH, MOE_PARAMS, MOE_PACKED, MOE_CLIENTS,
+    "lm_moe": (MOE_ARCH, LM_LAYERS, MOE_PARAMS, MOE_PACKED, MOE_CLIENTS,
                ("--compressor", "int8"),
                lambda r: expect(
                    sophia_update_flat=r * MOE_CLIENTS * LM_ITERS,
                    quant_roundtrip_flat=r * MOE_CLIENTS)),
+    "lm_rec": (REC_ARCH, REC_LAYERS, REC_PARAMS, REC_PACKED, REC_CLIENTS,
+               ("--compressor", "int8"),
+               lambda r: expect(sophia_update_batched=r * LM_ITERS,
+                                quant_roundtrip_batched=r)),
+    "lm_xlstm": (XLSTM_ARCH, XLSTM_LAYERS, XLSTM_PARAMS, XLSTM_PACKED,
+                 REC_CLIENTS, ("--compressor", "int8"),
+                 lambda r: expect(sophia_update_batched=r * LM_ITERS,
+                                  quant_roundtrip_batched=r)),
 }
 #: the phases whose resumed round (round 0's batches again: the CLI
 #: salts batches by the run's round index) must give a loss below the
 #: first run's round 0: the model learnt those batches.  Over the first
 #: run's rounds, new batches each, the loss need not fall at lr 1e-3
-LM_RELEARN = ("lm_moe",)
+LM_RELEARN = ("lm_moe", "lm_rec", "lm_xlstm")
+#: the profiler ranges of a profiled LM round whose device time is read,
+#: each with the block kind that runs it (None: the MoE FFN): the MoE's
+#: dispatch / combine einsums and each recurrent mixer's scan (forward
+#: and backward)
+LM_SPANS = {ROUTE_SPAN: ("MoE dispatch / combine einsums", None),
+            RGLRU_SPAN: ("RG-LRU scans", "rec"),
+            MLSTM_SPAN: ("mLSTM chunk scans", "m"),
+            SLSTM_SPAN: ("sLSTM step loops", "s")}
+#: the fp32 leaves of a bf16 model (the MoE routers, the RG-LRU's decay,
+#: the mLSTM's gates, the sLSTM's gate biases), by the ends of their keys
+FP32_LEAVES = ("/router", "/lam", "/w_if", "/b_if", "/b_gates")
 #: the kernels of a profiled LM round, by words of the device activity's
 #: name: the Sophia update (rows 1-2) and the quantize round-trip (4-5)
 LM_KERNEL_WORDS = {"Sophia (rows 1-2)": "sophia",
                    "quant round-trip (rows 4-5)": "quant_roundtrip"}
 
 
-def lm_argv(arch, clients, ckpt_dir, rounds, *extra):
-    return ["--arch", arch, "--layers", str(LM_LAYERS),
+def lm_argv(arch, layers, clients, ckpt_dir, rounds, *extra):
+    return ["--arch", arch, "--layers", str(layers),
             "--rounds", str(rounds), "--clients", str(clients),
             "--local-iters", str(LM_ITERS), "--tau", str(LM_TAU),
             "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
@@ -2950,6 +3008,40 @@ def reckon_seq_peak(n_params, packed_shape, clients, logits_shape):
             ("logits, softmax and grad (fp32)", 3 * logits)]
 
 
+def reckon_par_peak(cfg, n_params, packed_shape, clients, batch, seq):
+    """The peak of a parallel LM round (`FedEngine._sophia_loop` over the
+    cohort's stacks) by buffer, reckoned before the run as the buffers of
+    a GNB refresh step all alive at once: ``(name, bytes)`` pairs.  P is
+    one fp32 buffer in wire layout, C the clients.  Resident: server θ
+    (P), m and h of every client (2·C·P); the step: the cohort's θ stack
+    (C·P), the zero ĥ of steps without a refresh (C·P), the packed loss
+    grads (C·P), the packed GNB estimate (C·P), the params view (bf16:
+    C·P/2), the GNB's grads and their squares (bf16: C·P); the
+    vocab-wide fp32 tensors of a loss (logits, the pad-masked copy, the
+    gumbel noise, their sum, the CE grad); the mLSTM's fp32 (dh, dh)
+    carries the backward keeps, three a head, chunk, layer, sequence and
+    client."""
+    P = packed_shape[0] * packed_shape[1] * 4
+    C = clients
+    vocab = 4 * C * batch * seq * cfg.vocab_padded
+    n_m = (cfg.pattern_reps * cfg.block_pattern.count("m")
+           + cfg.pattern_remainder.count("m"))
+    H = cfg.num_heads
+    dh = int(cfg.mlstm_proj_factor * cfg.d_model) // H
+    carries = 3 * 4 * C * batch * H * dh * dh * max(
+        seq // MLSTM_CHUNK, 1) * n_m
+    parts = [("server θ", P), (f"m and h of {C} clients", 2 * C * P),
+             ("cohort θ", C * P), ("zero ĥ", C * P),
+             ("packed grads", C * P), ("packed GNB estimate", C * P),
+             ("params view (bf16)", 2 * C * n_params),
+             ("GNB grads and their squares (bf16)", 4 * C * n_params),
+             ("vocab-wide fp32 tensors of a loss (five)", 5 * vocab)]
+    if n_m:
+        parts.append((f"mLSTM carries kept for backward ({n_m} layers)",
+                      carries))
+    return parts
+
+
 def lm_phase(label, device):
     """One LM phase of `LM_PHASES` through ``repro_torch.launch.train.
     main``: `LM_ROUNDS` rounds with ``--obs-log`` (a flush a round) and
@@ -2965,26 +3057,29 @@ def lm_phase(label, device):
     from repro_torch import obs
     from repro_torch.checkpoint import ckpt
     from repro_torch.launch import train
-    arch, n_params, packed_shape, clients, flags, want_of = LM_PHASES[label]
+    (arch, layers, n_params, packed_shape, clients, flags,
+     want_of) = LM_PHASES[label]
     card = card_info()
     launches = {name: 0 for name in REPLACES}
     from repro_torch.configs import get_fed_overrides, get_model_config
-    reckoned = None
+    cfg = dataclasses.replace(get_model_config(arch), num_layers=layers)
     if get_fed_overrides(arch).get("strategy") == "sequential":
-        cfg = get_model_config(arch)
         parts = reckon_seq_peak(n_params, packed_shape, clients,
                                 (LM_BATCH, LM_SEQ, cfg.vocab_padded))
-        reckoned = sum(b for _, b in parts)
-        print(f"{label}: reckoned peak {reckoned} bytes: " + "; ".join(
-            f"{name} {b}" for name, b in parts))
+    else:
+        parts = reckon_par_peak(cfg, n_params, packed_shape, clients,
+                                LM_BATCH, LM_SEQ)
+    reckoned = sum(b for _, b in parts)
+    print(f"{label}: reckoned peak {reckoned} bytes: " + "; ".join(
+        f"{name} {b}" for name, b in parts))
     with tempfile.TemporaryDirectory(prefix=f"{label}_") as tmp:
         tmp = Path(tmp)
         log = tmp / "run.jsonl"
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        res = train.main(lm_argv(arch, clients, tmp / "ckpt", LM_ROUNDS,
-                                 *flags, "--obs-log", str(log),
+        res = train.main(lm_argv(arch, layers, clients, tmp / "ckpt",
+                                 LM_ROUNDS, *flags, "--obs-log", str(log),
                                  "--obs-flush-every", "1"))
         got = launch_counts()
         want = want_of(LM_ROUNDS)
@@ -3005,15 +3100,17 @@ def lm_phase(label, device):
             raise SystemExit(f"{label}: losses {losses}")
         steady = sum(secs[1:]) / len(secs[1:])
         fed = engine.fed
-        print(f"{label}: {arch} x {LM_LAYERS} layers, {n_params} "
+        print(f"{label}: {arch} x {layers} layers, {n_params} "
               f"parameters packed {packed}, {clients} clients, "
               f"{fed.strategy}, compressor {fed.comm.compressor}, "
               f"J={LM_ITERS}: losses {losses}; seconds per round {secs}; "
               f"steady seconds per round (rounds 1-{LM_ROUNDS - 1}) "
               f"{steady}; peak device memory {peak} bytes; {card}")
-        if reckoned is not None:
-            print(f"{label}: peak {peak} bytes against the reckoned "
-                  f"{reckoned} ({(peak - reckoned) / 1e9} GB over)")
+        print(f"{label}: peak {peak} bytes against the reckoned "
+              f"{reckoned} ({(reckoned - peak) / 1e9} GB under)")
+        if peak > reckoned:
+            raise SystemExit(f"{label}: peak {peak} bytes above the "
+                             f"reckoned {reckoned}")
 
         recs = obs.read_records(str(log))
         for rec in recs:
@@ -3048,12 +3145,15 @@ def lm_phase(label, device):
                     or not torch.equal(bits(restored[k]), bits(v))):
                 raise SystemExit(f"{label}: checkpoint leaf {k} is not "
                                  "bitwise the saved params")
-        routers = [k for k in saved if k.endswith("/router")]
-        if engine.task.cfg.moe is not None and (not routers or any(
+        fp32_leaves = [k for k in saved if k.endswith(FP32_LEAVES)]
+        wants_fp32 = (engine.task.cfg.moe is not None or set(
+            engine.task.cfg.block_pattern) & {"rec", "m", "s"})
+        if wants_fp32 and (not fp32_leaves or any(
                 saved[k].dtype != torch.float32
-                or manifest["dtypes"][k] != "float32" for k in routers)):
-            raise SystemExit(f"{label}: router leaves {routers} are not "
-                             "fp32 in the params and the checkpoint")
+                or manifest["dtypes"][k] != "float32"
+                for k in fp32_leaves)):
+            raise SystemExit(f"{label}: leaves {fp32_leaves} are not fp32 "
+                             "in the params and the checkpoint")
         if (manifest["step"] != LM_ROUNDS
                 or manifest["extra"]["wire"]
                 != engine.wire_headers(state["params"])):
@@ -3074,17 +3174,20 @@ def lm_phase(label, device):
         by_name, span_us = profile_call(
             lambda: engine.round(state, batches,
                                  generator=gen(device, SEED + 8)), steady,
-            top=16, spans=(ROUTE_SPAN,))
+            top=16, spans=tuple(LM_SPANS))
         busy = sum(t for t, _ in by_name.values())
-        if cfg.moe is not None:
-            route_us = span_us[ROUTE_SPAN]
-            if not route_us:
-                raise SystemExit(f"{label}: the profile shows no MoE "
-                                 "dispatch / combine range")
-            print(f"{label}: profiled round: MoE dispatch / combine "
-                  f"einsums (forward and backward, every layer, client "
-                  f"and step) {route_us} us of device activities in their "
-                  f"ranges ({route_us / busy} of device time); {card}")
+        for span, (what, kind) in LM_SPANS.items():
+            if not (cfg.moe is not None if kind is None
+                    else kind in cfg.block_pattern):
+                continue
+            if not span_us[span]:
+                raise SystemExit(f"{label}: the profile shows no {what} "
+                                 "range")
+            print(f"{label}: profiled round: {what} (forward and "
+                  f"backward, every layer, client and step) "
+                  f"{span_us[span]} us of device activities in their "
+                  f"ranges ({span_us[span] / busy} of device time); "
+                  f"{card}")
         for what, word in LM_KERNEL_WORDS.items():
             hits = [(t, n) for name, (t, n) in by_name.items()
                     if word in name.lower()]
@@ -3095,7 +3198,7 @@ def lm_phase(label, device):
         torch.cuda.empty_cache()
 
         reset_launches()
-        res = train.main(lm_argv(arch, clients, tmp / "ckpt",
+        res = train.main(lm_argv(arch, layers, clients, tmp / "ckpt",
                                  LM_RESUME_ROUNDS, *flags, "--resume"))
         got = launch_counts()
         want = want_of(LM_RESUME_ROUNDS)
@@ -3141,11 +3244,38 @@ def lm_moe(device):
     return lm_phase("lm_moe", device)
 
 
+def lm_rec(device):
+    """Slice 13's RG-LRU path: recurrentgemma-2b x 3 layers at its
+    published widths (two RG-LRU blocks and a local attention block), 2
+    clients on its arch's parallel strategy, ``--compressor int8`` (rows 2
+    and 5)."""
+    return lm_phase("lm_rec", device)
+
+
+def lm_xlstm(device):
+    """Slice 13's xLSTM path: xlstm-1.3b x 8 layers at its published
+    widths (seven mLSTM blocks and an sLSTM block, no FFN), 2 clients on
+    its arch's parallel strategy, ``--compressor int8`` (rows 2 and 5)."""
+    return lm_phase("lm_xlstm", device)
+
+
 #: the LM's card-against-CPU checks, reduced(d_model=128) at fp32
 #: parameters, J=2, tau=2, batch 2, 2 rounds: (arch, strategy, clients,
-#: seq, comm); gemma2-9b at seq 128, past its reduced window (64); the
-#: MoE archs' routing compared choice by choice (`route_flips`)
+#: seq, comm[, options]), the options `REC_SMALL` / `XLSTM_SMALL` and
+#: ``replace``, config fields replaced; gemma2-9b and recurrentgemma-2b
+#: at seq 128, past their reduced window (64); xlstm-1.3b at seq 256, two
+#: mLSTM chunks; the MoE archs' routing compared choice by choice
+#: (`route_flips`)
 LM_SMALL = dict(iters=2, tau=2, batch=2, rounds=2)
+#: the recurrent archs' options: ``clip``, a parameter coordinate may
+#: move by a flipped Sophia clip within the count (as the MoE archs'
+#: may; at m near 0 the scans' order error sets its sign); ``resync``,
+#: every round starts the card from a copy of the CPU's state (the
+#: sLSTM's input-gate biases leave round 0 a flipped clipped step apart,
+#: `slstm_input_gates`, so round 1 would compare two models, not two
+#: devices)
+REC_SMALL = dict(clip=True)
+XLSTM_SMALL = dict(clip=True, resync=True)
 BIDIR_LM = dict(compressor="int8", downlink_compressor="int8",
                 hessian_compressor="int4", participation=0.5)
 LM_SMALL_CASES = {
@@ -3169,7 +3299,27 @@ LM_SMALL_CASES = {
     "minicpm-2b signsgd majority": ("minicpm-2b", "parallel", 4, 32,
                                     dict(compressor="signsgd",
                                          sign_majority=True)),
+    "recurrentgemma-2b parallel": ("recurrentgemma-2b", "parallel", 2, 128,
+                                   {}, REC_SMALL),
+    "recurrentgemma-2b parallel, 5 layers": (
+        "recurrentgemma-2b", "parallel", 2, 128, {},
+        dict(REC_SMALL, replace=dict(num_layers=5))),
+    "xlstm-1.3b parallel": ("xlstm-1.3b", "parallel", 2, 256, {},
+                            XLSTM_SMALL),
+    "xlstm-1.3b parallel, d_ff=0": ("xlstm-1.3b", "parallel", 2, 256, {},
+                                    dict(XLSTM_SMALL, replace=dict(d_ff=0))),
 }
+
+
+def slstm_input_gates(cfg, spec) -> np.ndarray:
+    """The flat coordinates of every sLSTM block's input-gate biases
+    (``b_gates[D:2D]``) in the packed layout ``spec``.  Their gradient
+    cancels to rounding noise: the stabilizer ``m_t = max(f_t + m_{t-1},
+    i_t)`` makes ``exp(i_t - m_t)`` flat in ``i_t`` wherever ``i_t`` is
+    the max (every step 0), so Sophia's clip follows the noise's sign
+    there, on the CPU and on the card alike."""
+    D = cfg.d_model
+    return tflat.leaf_coords(spec, "/mixer/b_gates", D, 2 * D).numpy()
 
 
 def lm_small_launches(fed, rounds) -> dict:
@@ -3271,17 +3421,24 @@ def lm_small_case(device, label):
     `SMALL_MAX_FLIPS` coordinates a buffer, each within one move of its
     streams (`ScaleProbe`: a quant step, a threshold, twice a SignSGD
     scale; none on a lossless round).  Returns the card's launches,
-    asserted exactly (`lm_small_launches`).  MoE archs: every top-k
-    call's choices compared (`route_flips`; the first forward of round 0
-    starts from the same params), and a parameter coordinate may also
-    move by a flipped Sophia clip (at m near 0, where the GEMMs' order
-    error sets the sign: ``2 lr J / C`` a round)."""
+    asserted exactly (`lm_small_launches`).  Every coordinate outside
+    the band is printed with its leaf (`print_flips`).  MoE archs:
+    every top-k call's choices compared (`route_flips`; the first
+    forward of round 0 starts from the same params), and a parameter
+    coordinate may also move by a flipped Sophia clip (at m near 0,
+    where the GEMMs' order error sets the sign: ``2 lr J / C`` a
+    round), within the same count; so may the recurrent archs' (the
+    ``clip`` option).  xlstm: the sLSTM's input-gate biases may move by
+    that clip outside the count, their m and h not held
+    (`slstm_input_gates`), and each round starts from the CPU's state
+    (the ``resync`` option)."""
     from repro_torch.configs import get_model_config
     from repro_torch.models.transformer import LMTask
-    arch, strategy, C, seq, comm_kw = LM_SMALL_CASES[label]
+    arch, strategy, C, seq, comm_kw, *opts = LM_SMALL_CASES[label]
+    opts = opts[0] if opts else {}
     sm = LM_SMALL
     cfg = dataclasses.replace(get_model_config(arch).reduced(d_model=128),
-                              dtype="float32")
+                              dtype="float32", **opts.get("replace", {}))
     task = LMTask(cfg)
     fed = FedConfig(num_clients=C, local_iters=sm["iters"], tau=sm["tau"],
                     lr=1e-3, schedule="wsd", total_rounds=sm["rounds"],
@@ -3294,7 +3451,12 @@ def lm_small_case(device, label):
         for key, e in engines.items()}
     flips, launches, route = [], {}, []
     moe = cfg.moe is not None
+    spec = engines["cpu"].runtime_for(states["cpu"]["params"]).spec
+    free = slstm_input_gates(cfg, spec)
     for r in range(sm["rounds"]):
+        if r and opts.get("resync"):
+            states["card"] = convert.state_from_numpy(
+                convert.state_to_numpy(states["cpu"]), device=device)
         b = syn.make_token_batch(gen("cpu", SEED + 20 + r), C, sm["batch"],
                                  seq, cfg.vocab_size)
         g = gumbel_noise(gen("cpu", SEED + 30 + r),
@@ -3325,10 +3487,13 @@ def lm_small_case(device, label):
             route.append(route_flips(
                 f"lm small check {label} round {r}", calls["cpu"],
                 calls["card"], cfg.num_layers if r == 0 else 0))
+        if moe or opts.get("clip"):
             steps["clip"] = 2 * fed.lr * sm["iters"] * (r + 1) / C
+        want_b, got_b = (state_buffers(states[k]) for k in ("cpu", "card"))
+        print_flips(f"lm small check {label} round {r}", spec, want_b,
+                    got_b)
         flips.append(flip_band(f"lm small check {label} round {r}",
-                               state_buffers(states["cpu"]),
-                               state_buffers(states["card"]), steps))
+                               want_b, got_b, steps, free))
     want = lm_small_launches(fed, sm["rounds"])
     if launches != want:
         raise SystemExit(f"lm small check {label}: launches {launches}, "
@@ -3339,6 +3504,24 @@ def lm_small_case(device, label):
           f"launches {({k: v for k, v in launches.items() if v})}"
           + (f"; flipped MoE choices per round {route}" if moe else ""))
     return launches
+
+
+def print_flips(label, spec, want, got, most=8) -> None:
+    """Prints the leaf, index, CPU and card values of the first ``most``
+    coordinates of the params, m and h outside the small band (m and h:
+    client by client)."""
+    starts = np.cumsum((0,) + spec.sizes)
+    for name in ("params", "m", "h"):
+        rows = want[name].reshape(-1, spec.rows * spec.cols)
+        for k, (w, g) in enumerate(zip(
+                rows, got[name].reshape(rows.shape))):
+            out = np.flatnonzero(np.abs(g - w)
+                                 > SMALL_ATOL + SMALL_RTOL * np.abs(w))
+            for c in out[:most]:
+                i = int(np.searchsorted(starts, c, side="right")) - 1
+                leaf = spec.keys[i] if i < len(spec.keys) else "pad"
+                print(f"{label}: {name}[{k}] coordinate {c} "
+                      f"({leaf}[{c - starts[i]}]): CPU {w[c]}, card {g[c]}")
 
 
 def lm_small_check(device):
@@ -3389,23 +3572,27 @@ def lm_same_bits(label, name, got, plain, ins, chunks=8):
 
 
 def time_lm_kernels(device):
-    """The kernels at the LM slice's shapes, each bitwise its plain
+    """The kernels at the LM slices' shapes, each bitwise its plain
     version (`lm_same_bits`) and timed beside it (`time_pair`):
 
-    * row 2 at one client's slice of minicpm-2b x 2 layers, ``(1,
-      395724, 1024)``;
+    * row 2 at one client's slice of each parallel phase's packed
+      buffer: minicpm-2b x 2 layers ``(1, 395724, 1024)``,
+      recurrentgemma-2b x 3 ``(1, 890933, 1024)``, xlstm-1.3b x 8
+      ``(1, 755049, 1024)``: θ, m, h, g, ĥ read, θ, m, h written, 32 B
+      a coordinate;
     * row 1 at gemma2-9b x 2 layers' packed ``(1283104, 1024)`` and at
-      deepseek-v2-lite-16b x 2 layers' ``(1551883, 1024)``: θ, m, h, g,
-      ĥ read, θ, m, h written, 32 B a coordinate;
+      deepseek-v2-lite-16b x 2 layers' ``(1551883, 1024)``;
     * row 4 at the same shapes: x and the noise read, x̂ written (and
       the row scales), 12 B a coordinate;
-    * row 5 at minicpm-2b's cohort of 4, ``(4, 395724, 1024)``: 12 B a
-      coordinate.
+    * row 5 at each int8 parallel phase's cohort: minicpm-2b's 4
+      clients ``(4, 395724, 1024)``, recurrentgemma-2b's and xlstm-1.3b's
+      2: 12 B a coordinate.
 
     fp32 throughout.  Returns (name, LM slice) -> timing."""
     lr = torch.tensor(LR)
     out = {}
     card = card_info()
+    layers = {arch: n for arch, n, *_ in LM_PHASES.values()}
 
     def report(key, arch, t, err):
         print(f"lm slice {key} ({arch}): {t['ms']} ms against a "
@@ -3413,20 +3600,22 @@ def time_lm_kernels(device):
               f"plain {t['plain_ms']} ms, max |err| {err}; {card}")
         out[key, arch] = t
 
-    R, C = LM_PACKED
-    ins = lm_sophia_inputs((1, R, C), device, SEED + 98)
-    err = lm_same_bits("lm slice", "sophia_update_batched",
-                       tk.sophia_update_batched(*ins, 1, lr, **HP),
-                       lambda a: sophia_update_ref(*a, 1, lr=lr, **HP), ins)
-    report("sophia_update_batched", LM_ARCH, time_pair(
-        "sophia_update_batched (LM slice: one client of minicpm-2b x 2 "
-        "layers)",
-        lambda i: tk.sophia_update_batched(*ins, 1, lr, **HP),
-        lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
-        ins, ins[:3], SOPHIA_OPS, plain_chunk=LM_PLAIN_CHUNK,
-        launches=LM_TIMED_LAUNCHES), err)
-    del ins
-    torch.cuda.empty_cache()
+    for arch, (R, C) in ((LM_ARCH, LM_PACKED), (REC_ARCH, REC_PACKED),
+                         (XLSTM_ARCH, XLSTM_PACKED)):
+        ins = lm_sophia_inputs((1, R, C), device, SEED + 98)
+        err = lm_same_bits("lm slice", "sophia_update_batched",
+                           tk.sophia_update_batched(*ins, 1, lr, **HP),
+                           lambda a: sophia_update_ref(*a, 1, lr=lr, **HP),
+                           ins)
+        report("sophia_update_batched", arch, time_pair(
+            f"sophia_update_batched (LM slice: one client of {arch} x "
+            f"{layers[arch]} layers)",
+            lambda i: tk.sophia_update_batched(*ins, 1, lr, **HP),
+            lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
+            ins, ins[:3], SOPHIA_OPS, plain_chunk=LM_PLAIN_CHUNK,
+            launches=LM_TIMED_LAUNCHES), err)
+        del ins
+        torch.cuda.empty_cache()
 
     for arch, (R, C) in ((SEQ_ARCH, SEQ_PACKED), (MOE_ARCH, MOE_PACKED)):
         ins = lm_sophia_inputs((R, C), device, SEED + 97)
@@ -3435,7 +3624,8 @@ def time_lm_kernels(device):
                            lambda a: sophia_update_ref(*a, 1, lr=lr, **HP),
                            ins)
         report("sophia_update_flat", arch, time_pair(
-            f"sophia_update_flat (LM slice: {arch} x 2 layers)",
+            f"sophia_update_flat (LM slice: {arch} x {layers[arch]} "
+            "layers)",
             lambda i: tk.sophia_update_flat(*ins, 1, lr, **HP),
             lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
             ins, ins[:3], SOPHIA_OPS, plain_chunk=LM_PLAIN_CHUNK,
@@ -3447,7 +3637,11 @@ def time_lm_kernels(device):
             ("quant_roundtrip_flat", SEQ_ARCH, SEQ_PACKED),
             ("quant_roundtrip_flat", MOE_ARCH, MOE_PACKED),
             ("quant_roundtrip_batched", LM_ARCH,
-             (LM_CLIENTS,) + LM_PACKED)):
+             (LM_CLIENTS,) + LM_PACKED),
+            ("quant_roundtrip_batched", REC_ARCH,
+             (REC_CLIENTS,) + REC_PACKED),
+            ("quant_roundtrip_batched", XLSTM_ARCH,
+             (REC_CLIENTS,) + XLSTM_PACKED)):
         g = gen(device, SEED + 96)
         x = torch.randn(shape, generator=g, device=device) * 1e-3
         noise = torch.rand(shape, generator=g, device=device)
@@ -3458,8 +3652,8 @@ def time_lm_kernels(device):
             "lm slice", name, entry(x, noise, scale, qmax=127),
             lambda a: kref.quant_roundtrip_ref(*a, qmax=127), ins)
         report(name, arch, time_pair(
-            f"{name} (LM slice: {arch} x 2 layers"
-            + ("" if name.endswith("flat") else f", {LM_CLIENTS} clients")
+            f"{name} (LM slice: {arch} x {layers[arch]} layers"
+            + ("" if name.endswith("flat") else f", {shape[0]} clients")
             + ")",
             lambda i: entry(x, noise, scale, qmax=127),
             lambda i: kref.quant_roundtrip_ref(x, noise, scale, qmax=127),
@@ -3624,7 +3818,8 @@ def main() -> None:
     print(f"steady seconds per round by path: {json.dumps(steady)}")
     lm_launches = {"lm_small_check": lm_small_check(device),
                    "lm_train": lm_train(device), "lm_comm": lm_comm(device),
-                   "lm_seq": lm_seq(device), "lm_moe": lm_moe(device)}
+                   "lm_seq": lm_seq(device), "lm_moe": lm_moe(device),
+                   "lm_rec": lm_rec(device), "lm_xlstm": lm_xlstm(device)}
     for path_launches in lm_launches.values():
         for k, v in path_launches.items():
             launches[k] += v
@@ -3658,7 +3853,9 @@ def main() -> None:
     print(json.dumps({"lm_kernels": [
         dict(name=name, slice=arch,
              launches={phase: counts[name] for phase, counts
-                       in lm_launches.items() if counts[name]},
+                       in lm_launches.items() if counts[name] and (
+                           phase == "lm_small_check"
+                           or LM_PHASES[phase][0] == arch)},
              **t) for (name, arch), t in lm_timing.items()]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

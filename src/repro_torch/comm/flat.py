@@ -228,6 +228,20 @@ def with_cols(spec: FlatSpec, cols: int) -> FlatSpec:
     return dataclasses.replace(spec, cols=cols, rows=-(-spec.total // cols))
 
 
+def leaf_coords(spec: FlatSpec, suffix: str, lo: int,
+                hi: int) -> torch.Tensor:
+    """The flat coordinates, in ``spec``'s packed layout, of
+    ``leaf[..., lo:hi]`` for every leaf whose key ends with ``suffix``
+    (int64, ascending)."""
+    parts, start = [], 0
+    for k, size, shape in zip(spec.keys, spec.sizes, spec.shapes):
+        if k.endswith(suffix):
+            idx = torch.arange(start, start + size).reshape(shape)
+            parts.append(idx[..., lo:hi].reshape(-1))
+        start += size
+    return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64)
+
+
 def zeros(spec: FlatSpec, lead: Tuple[int, ...] = (),
           dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     """A zeroed flat state buffer in ``spec``'s layout, with optional
@@ -280,7 +294,7 @@ def pack(tree: Dict[str, torch.Tensor], spec: FlatSpec,
                     device=first.device)
     off = 0
     for k, sz in zip(spec.keys, spec.sizes):
-        v[..., off:off + sz].copy_(tree[k].reshape(lead + (-1,)))
+        v[..., off:off + sz].copy_(tree[k].reshape(lead + (sz,)))
         off += sz
     v[..., spec.total:].zero_()
     return store_as(v.reshape(lead + (spec.rows, spec.cols)), dtype)

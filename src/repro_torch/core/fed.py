@@ -93,7 +93,7 @@ from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, cat_rows,
                                    take_rows, unpack, with_cols, zeros)
 from repro_torch.configs.base import COMM_STREAMS, FedConfig
 from repro_torch.core.gnb import (accumulate, gnb_estimate, labels_of,
-                                  microbatch_slices)
+                                  leaf_grads, microbatch_slices)
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
 from repro_torch.kernels.ref import sign, store_as
@@ -994,8 +994,7 @@ class FedEngine:
         loss = grads = None
         for mb in microbatch_slices(batch, n):
             loss_i = self.task.loss(pg, mb)
-            g = torch.autograd.grad(loss_i.sum(),
-                                    [pg[k] for k in spec.keys])
+            g = leaf_grads(loss_i.sum(), [pg[k] for k in spec.keys])
             loss_i = loss_i.detach()
             loss = loss_i if n <= 1 else (
                 loss_i / n if loss is None else loss + loss_i / n)

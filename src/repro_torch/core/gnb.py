@@ -34,10 +34,20 @@ def gnb_estimate(task, params: Dict[str, torch.Tensor], batch,
     g_hat = None
     for mb in microbatch_slices({**batch, "gumbel": gumbel}, microbatches):
         loss = task.sampled_loss(leaves, mb, mb["gumbel"])
-        g = torch.autograd.grad(loss.sum(), [leaves[k] for k in keys])
+        g = leaf_grads(loss.sum(), [leaves[k] for k in keys])
         g_hat = accumulate(g_hat, g, microbatches)
     B = task.gnb_batch_size(batch)
     return {k: B * g * g for k, g in zip(keys, g_hat)}
+
+
+def leaf_grads(loss: torch.Tensor, leaves):
+    """``torch.autograd.grad(loss, leaves)``, where a zero-size leaf (an
+    LM's zero-length layer stack, at a depth below its block pattern's
+    length) reaches no op and gets its empty gradient."""
+    live = [x for x in leaves if x.numel()]
+    grads = iter(torch.autograd.grad(loss, live))
+    return [next(grads) if x.numel() else torch.zeros_like(x)
+            for x in leaves]
 
 
 def labels_of(batch) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Training launcher of the port: federated Fed-Sophia (or a baseline)
 on an LM of the zoo, the twin of the JAX package's
 ``repro/launch/train.py`` with its arguments plus ``--device`` and
-``--layers`` (cut the depth, keep the published widths).  Runs on the
+``--layers`` (cut the depth, keep the published widths; a depth below
+the arch's block pattern keeps its first blocks, as JAX builds it, e.g.
+xlstm-1.3b at 2 layers two mLSTM blocks).  Runs on the
 card; ``--device cpu`` runs the plain PyTorch versions of the kernels
 (the tests' route).  Without a card and without that flag it raises:
 
@@ -219,8 +221,10 @@ def build_parser() -> argparse.ArgumentParser:
 def model_config(args) -> configs.ModelConfig:
     """The arch's `ModelConfig` as the parsed ``args`` ask: ``--reduced``
     widths, then ``--layers`` (the block pattern tiles the cut depth:
-    gemma2-9b at 2 layers keeps one ``local`` and one ``global``
-    block)."""
+    gemma2-9b at 2 layers keeps one ``local`` and one ``global`` block;
+    below the pattern's length the stacks are empty and the first blocks
+    of the pattern remain: recurrentgemma-2b at 2 layers two ``rec``
+    blocks)."""
     cfg = configs.get_model_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(d_model=128)

@@ -115,13 +115,69 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype (on the CPU, where
+    it acts as a scalar of any device's op): the value rounded to that
+    dtype first, as JAX rounds a weak-typed Python scalar before it
+    meets a bf16 array (torch would compute with the unrounded value in
+    fp32)."""
+    return torch.tensor(value, dtype=like.dtype)
+
+
+class _Sigmoid(torch.autograd.Function):
+    """``jax.nn.sigmoid`` (``lax.logistic``), the form nearest XLA's in
+    each dtype: at bf16 XLA's expansion ``1 / (1 + exp(-x))`` with each
+    op rounded (JAX's bits; ``torch.sigmoid`` rounds once, a third of
+    bf16 values a step off), at fp32 ``torch.sigmoid`` (334 of 100,000
+    values an ulp from XLA's, the expansion with torch's ``exp`` 3,964);
+    JAX's tangent ``y (1 - y)`` (no overflow of ``exp(-x)`` reaches the
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = (torch.sigmoid(x) if x.dtype == torch.float32
+             else 1 / (1 + torch.exp(-x)))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return _Sigmoid.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: at bf16 op by op, each
+    constant and op rounded, ``x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x +
+    0.044715 x^3))))`` (JAX's bits; ``F.gelu`` rounds once, 42% of bf16
+    values a step off); at fp32 ``F.gelu``, the nearer XLA's there."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    cdf = scalar(0.5, x) * (1 + torch.tanh(
+        scalar(math.sqrt(2 / math.pi), x)
+        * (x + scalar(0.044715, x) * x ** 3)))
+    return x * cdf
+
+
 def ffn_act(kind: str, gate, up):
+    # swiglu keeps F.silu (one rounding at bf16, a step off JAX's `silu`
+    # in about a third of values): `silu` there flips a near-tie MoE
+    # routing choice of the reduced deepseek-v2-lite-16b (ROADMAP queue 3)
     if kind == "swiglu":
         return F.silu(gate) * up
     if kind == "geglu":
-        return F.gelu(gate, approximate="tanh") * up
+        return gelu_tanh(gate) * up
     if kind == "gelu":
-        return F.gelu(gate, approximate="tanh")
+        return gelu_tanh(gate)
     raise ValueError(kind)
 
 

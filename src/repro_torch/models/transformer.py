@@ -1,30 +1,42 @@
-"""The decoder stack of the LM zoo, the attention-block members: the
-port of the JAX package's ``models/transformer.py`` for configs whose
-every block is an attention block (``attn``, or gemma2's alternating
-``local`` / ``global``) with an FFN: minicpm-2b, chatglm3-6b,
-gemma2-9b, qwen3-14b (dense), deepseek-v2-lite-16b (MLA attention, MoE
-with shared experts) and qwen3-moe-235b-a22b (MoE).  The features of
-those configs run as in JAX: a sliding window on ``local`` blocks
-(``long_mode_swa_only`` makes every ``global`` block ``local``), the
-attention and final logit softcaps, post-norms (``post_ln1`` after the
-mixer, ``post_ln2`` after the FFN, before each residual add), qk-norm,
-GeGLU; with ``cfg.mla`` every attention block is an MLA block, with
-``cfg.moe`` every FFN a capacity-routed MoE whose Switch-style aux
-loss, summed over the layers, is added to the loss.
+"""The decoder stack of the LM zoo: the port of the JAX package's
+``models/transformer.py`` for every block kind of its configs but the
+M-RoPE and embedding-input families: attention blocks (``attn``, or
+gemma2's alternating ``local`` / ``global``) for minicpm-2b,
+chatglm3-6b, gemma2-9b, qwen3-14b (dense), deepseek-v2-lite-16b (MLA
+attention, MoE with shared experts) and qwen3-moe-235b-a22b (MoE), and
+the recurrent mixers of `repro_torch.models.recurrent` (``rec``: RG-LRU,
+``m``: mLSTM, ``s``: sLSTM) for recurrentgemma-2b and xlstm-1.3b.  The
+features of those configs run as in JAX: a sliding window on ``local``
+blocks (``long_mode_swa_only`` makes every ``global`` block ``local``),
+the attention and final logit softcaps, post-norms (``post_ln1`` after
+the mixer, ``post_ln2`` after the FFN, before each residual add),
+qk-norm, GeGLU; with ``cfg.mla`` every attention block is an MLA block,
+with ``cfg.moe`` every FFN a capacity-routed MoE whose Switch-style aux
+loss, summed over the layers, is added to the loss.  A block has an FFN
+(``ln2``, ``ffn/...``) only when ``d_ff > 0`` or ``cfg.moe`` is set
+(xlstm-1.3b's blocks have none).
 
 Parameters are the flat ``/``-keyed dict of `repro_torch.models.layers`:
 ``embed``, ``final_norm``, ``lm_head`` (untied configs), and the blocks
 of block-pattern position ``pi`` stacked on a leading layer axis under
 ``blocks_{pi}/...`` (``blocks_0/mixer/wq`` is ``(L, D, H*hd)``, an
 expert's ``blocks_0/ffn/w_gate`` ``(L, E, D, F)``), as the JAX package
-stacks them for ``lax.scan``.  `forward` loops over that axis where JAX
-scans.  Every function also takes parameters with a leading client axis
-``(N, ...)`` (batch leaves ``(N, B, S)``): the loss (and the aux loss)
-then comes back per client, shape ``(N,)``.
+stacks them for ``lax.scan``; the depth's remainder past the last whole
+pattern as single blocks ``rem_{ri}/...``.  A depth below the pattern's
+length leaves ``L = 0``: zero-length stacks, as JAX's ``vmap`` over no
+keys builds them, which pack to nothing and train nothing.  `forward`
+loops over that axis where JAX scans.  Every function also takes
+parameters with a leading client axis ``(N, ...)`` (batch leaves ``(N,
+B, S)``): the loss (and the aux loss) then comes back per client, shape
+``(N,)``.
 
-Every other family or feature raises `NotImplementedError` naming
-ROADMAP queue 1 (g): the recurrent mixers (rec / m / s), M-RoPE,
-embedding inputs and blocks without an FFN.
+A Python float that scales activations (``scale_emb``,
+``residual_scale``) is rounded to the activations' dtype first
+(`layers.scalar`), as JAX rounds a weak-typed scalar: at bf16 the
+products are JAX's bit for bit.
+
+M-RoPE and embedding inputs raise `NotImplementedError` naming ROADMAP
+queue 1 (g) 3.
 
 GNB label sampling goes through the RNG seam: ``sampled_loss`` takes
 gumbel noise of the logits' shape and samples ``argmax(logits +
@@ -40,6 +52,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
 Params = Dict[str, torch.Tensor]
 
@@ -47,29 +60,34 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 #: the attention block kinds (full, sliding-window, and gemma2's global)
 ATTN_KINDS = ("attn", "local", "global")
+#: the recurrent mixers: (init, apply) of RG-LRU, mLSTM and sLSTM
+RECURRENT = {"rec": (R.init_rglru, R.rglru_apply),
+             "m": (R.init_mlstm, R.mlstm_apply),
+             "s": (R.init_slstm, R.slstm_apply)}
 
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP queue 1 (g) "
-        "(the port runs the attention-block decoders: GQA or MLA "
-        "attention, a dense or MoE FFN)")
+        f"{what} is not ported to repro_torch yet: ROADMAP queue 1 (g) 3 "
+        "(the port runs token-input decoders with RoPE: attention, MLA "
+        "and recurrent mixers, dense, MoE or no FFN)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for a family or feature outside the
-    attention-block decoders this module runs."""
+    """Raise `NotImplementedError` for M-RoPE and embedding inputs (the
+    families this module does not run yet), `ValueError` for an unknown
+    block kind."""
     for kind in cfg.block_pattern:
-        if kind in ("rec", "m", "s"):
-            raise _not_ported(f"{cfg.name}: the recurrent mixer {kind!r}")
-        if kind not in ATTN_KINDS:
+        if kind not in ATTN_KINDS and kind not in RECURRENT:
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
     for field, what in (("mrope_sections", "M-RoPE"),
                         ("embedding_inputs", "embedding inputs")):
         if getattr(cfg, field):
             raise _not_ported(f"{cfg.name}: {what}")
-    if cfg.d_ff <= 0 and cfg.moe is None:
-        raise _not_ported(f"{cfg.name}: a block without an FFN")
+
+
+def _has_ffn(cfg: ModelConfig) -> bool:
+    return cfg.d_ff > 0 or cfg.moe is not None
 
 
 def _mixer_kind(cfg: ModelConfig, kind: str) -> str:
@@ -98,11 +116,14 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str,
     def ones():
         return torch.ones(cfg.d_model, dtype=dtype, device=dev)
     p: Params = {"ln1": ones()}
-    init_mixer = (L.init_mla if _mixer_kind(cfg, kind) == "mla"
-                  else L.init_attention)
+    km = _mixer_kind(cfg, kind)
+    init_mixer = (L.init_mla if km == "mla" else RECURRENT[km][0]
+                  if km in RECURRENT else L.init_attention)
     p.update(L.prefixed("mixer", init_mixer(generator, cfg, dtype)))
     if cfg.post_norm:
         p["post_ln1"] = ones()
+    if not _has_ffn(cfg):
+        return p
     p["ln2"] = ones()
     ffn = (L.init_moe(generator, cfg, dtype) if cfg.moe is not None else
            L.init_ffn(generator, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
@@ -117,17 +138,22 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns ``(x, aux)``: ``aux`` the MoE's aux loss, None for a
-    dense FFN."""
+    dense FFN or none."""
     kind = _effective_kind(cfg, kind)
+    km = _mixer_kind(cfg, kind)
     h = L.rms_norm(x, p["ln1"])
     mixer = L.subtree(p, "mixer")
-    if _mixer_kind(cfg, kind) == "mla":
+    if km == "mla":
         mix = L.mla_apply(mixer, cfg, h, positions)
+    elif km in RECURRENT:
+        mix = RECURRENT[km][1](mixer, cfg, h, positions)
     else:
         mix = L.attention_apply(mixer, cfg, h, positions, kind=kind)
     if cfg.post_norm:
         mix = L.rms_norm(mix, p["post_ln1"])
-    x = x + cfg.residual_scale * mix
+    x = x + L.scalar(cfg.residual_scale, mix) * mix
+    if "ln2" not in p:
+        return x, None
     h = L.rms_norm(x, p["ln2"])
     aux = None
     if cfg.moe is not None:
@@ -136,7 +162,7 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         f = L.ffn_apply(L.subtree(p, "ffn"), cfg.ffn_kind, h)
     if cfg.post_norm:
         f = L.rms_norm(f, p["post_ln2"])
-    return x + cfg.residual_scale * f, aux
+    return x + L.scalar(cfg.residual_scale, f) * f, aux
 
 
 # --------------------------------------------------------------------------
@@ -145,6 +171,12 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+class _ShapeOnly(torch.Generator):
+    """A generator whose draws land on the meta device: a block built
+    from it has its leaves' shapes and dtypes and no storage."""
+    device = torch.device("meta")
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
@@ -163,10 +195,17 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
         params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_padded, dtype)
     for pi, kind in enumerate(cfg.block_pattern):
-        reps = [init_block(generator, cfg, kind, dtype)
-                for _ in range(cfg.pattern_reps)]
-        params.update(L.prefixed(f"blocks_{pi}", {
-            k: torch.stack([r[k] for r in reps]) for k in reps[0]}))
+        if cfg.pattern_reps:
+            reps = [init_block(generator, cfg, kind, dtype)
+                    for _ in range(cfg.pattern_reps)]
+            stack = {k: torch.stack([r[k] for r in reps]) for k in reps[0]}
+        else:
+            # a depth below the pattern's length: zero-length stacks of
+            # a block's leaves (their shapes drawn on the meta device)
+            one = init_block(_ShapeOnly(), cfg, kind, dtype)
+            stack = {k: torch.empty((0,) + v.shape, dtype=v.dtype,
+                                    device=dev) for k, v in one.items()}
+        params.update(L.prefixed(f"blocks_{pi}", stack))
     for ri, kind in enumerate(cfg.pattern_remainder):
         params.update(L.prefixed(f"rem_{ri}",
                                  init_block(generator, cfg, kind, dtype)))
@@ -190,7 +229,7 @@ def _embed_in(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
         idx = torch.arange(e.shape[0], device=t.device).reshape(
             (-1,) + (1,) * (t.ndim - 1))
         x = e[idx, t].reshape(lead + tokens.shape[n_lead:] + e.shape[-1:])
-    return x * cfg.scale_emb
+    return x * L.scalar(cfg.scale_emb, x)
 
 
 def _logits_out(params: Params, cfg: ModelConfig,

@@ -86,6 +86,23 @@ def test_leaf_order_is_sorted_keys(name):
     assert jax_order == list(order)
 
 
+def test_leaf_coords_index_a_slice_of_each_matching_leaf():
+    """``leaf_coords`` gives the packed coordinates of ``leaf[..., lo:hi]``
+    for every leaf whose key ends with the suffix: a stack, a lone
+    vector and a zero-length stack among other leaves."""
+    tree = {"blocks_0/mixer/b_gates": torch.arange(16.).reshape(2, 8),
+            "blocks_1/mixer/b_gates": torch.zeros(0, 8),
+            "blocks_0/mixer/w": torch.full((5,), -1.),
+            "rem_0/mixer/b_gates": 100 + torch.arange(8.)}
+    spec = tflat.flat_spec(tree, cols=16)
+    idx = tflat.leaf_coords(spec, "/mixer/b_gates", 2, 4)
+    assert idx.dtype == torch.int64 and torch.all(idx[1:] > idx[:-1])
+    got = tflat.pack(tree, spec).reshape(-1)[idx]
+    np.testing.assert_array_equal(got.numpy(),
+                                  [2., 3., 10., 11., 102., 103.])
+    assert len(tflat.leaf_coords(spec, "/ln1", 0, 1)) == 0
+
+
 def test_as_dtype_names_match_jax():
     for name in ("float32", "bfloat16", "float8_e4m3fn", "float8_e5m2"):
         assert np.dtype(jflat.as_dtype(name)).name == name

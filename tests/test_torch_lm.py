@@ -45,6 +45,7 @@ from repro_torch import configs, convert
 from repro_torch.comm import flat as tflat
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.fed import FedEngine
+from repro_torch.core.gnb import leaf_grads
 from repro_torch.data import synthetic as syn
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
@@ -54,6 +55,9 @@ RTOL, ATOL = 1e-5, 1e-6
 DENSE = ("minicpm-2b", "chatglm3-6b", "gemma2-9b", "qwen3-14b")
 #: the MoE decoders it runs (tests/test_torch_lm_moe.py)
 MOE = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
+#: the recurrent-mixer archs it runs (tests/test_torch_lm_rec.py,
+#: tests/test_torch_lm_xlstm.py)
+RECURRENT = ("recurrentgemma-2b", "xlstm-1.3b")
 B, S = 2, 24
 #: the sliding window of the reduced configs that have one, below `S`
 WINDOW = 16
@@ -67,13 +71,17 @@ def _clear_jax_caches():
     jax.clear_caches()
 
 
-def _cfgs(arch, dtype=None):
+def _cfgs(arch, dtype=None, **replace):
+    """The reduced (JAX, port) configs of ``arch`` in ``dtype``, with the
+    fields of ``replace`` set in both."""
     j = jconfigs.get_model_config(arch).reduced(d_model=128)
     t = configs.get_model_config(arch).reduced(d_model=128)
     if t.window is not None:
         j, t = (dataclasses.replace(c, window=WINDOW) for c in (j, t))
     if dtype is not None:
-        j, t = (dataclasses.replace(c, dtype=dtype) for c in (j, t))
+        replace = dict(replace, dtype=dtype)
+    if replace:
+        j, t = (dataclasses.replace(c, **replace) for c in (j, t))
     return j, t
 
 
@@ -229,59 +237,81 @@ def test_attention_chunked_matches_jax(heads, Sq, chunk):
 
 # ---------------------------------------------------- model and loss
 def _loss_grads(task, params, batch):
+    """Loss and the grads of every leaf (a zero-size leaf, a depth cut's
+    empty stack, gets its empty grad: `gnb.leaf_grads`)."""
     pg = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss = task.loss(pg, batch)
-    grads = torch.autograd.grad(loss.sum(), list(pg.values()))
+    grads = leaf_grads(loss.sum(), list(pg.values()))
     return loss.detach(), dict(zip(pg, grads))
 
 
 @pytest.mark.parametrize("arch", DENSE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_loss_grads_sampled_loss_match_jax(arch, dtype):
-    jcfg, tcfg = _cfgs(arch, dtype)
+    model_vs_jax(*_cfgs(arch, dtype))
+
+
+def model_vs_jax(jcfg, tcfg, jit=False, fp32_band=(RTOL, ATOL),
+                 bf16_band=(2 ** -6, 2 ** -5)):
+    """The forward, loss, grads and GNB sampled loss of the reduced
+    configs against JAX's, from the same weights and batch, in the
+    module's bands for ``tcfg.dtype``.  ``jit``: the JAX side as one
+    jitted function (the recurrent archs: eager JAX takes tens of
+    seconds there), else op by op.  ``fp32_band``: ``(rtol, atol)`` of
+    the fp32 logits (``atol`` times their largest magnitude above 1),
+    loss and grads; ``bf16_band``: the bf16 logits' and grads' shares of
+    their largest magnitude."""
+    rtol, atol = fp32_band
+    logits_steps, grad_steps = bf16_band
     jp, tp = _params(jcfg)
     jb, tb = _batch(jcfg.vocab_size)
     jt, tt = JT.LMTask(jcfg), TT.LMTask(tcfg)
-    fp32 = dtype == "float32"
-    jl, _, _ = JT.forward(jp, jcfg, jb)
+    fp32 = tcfg.dtype == "float32"
+    key = jax.random.PRNGKey(9)
+
+    def reference(p, b):
+        return (JT.forward(p, jcfg, b)[0],
+                jax.value_and_grad(jt.loss)(p, b),
+                jt.sampled_loss(p, b, key))
+    jl, (jloss, jg), jsampled = (jax.jit(reference) if jit
+                                 else reference)(jp, jb)
     tl, _, _ = TT.forward(tp, tcfg, tb)
     assert tl.dtype == torch.float32 and tl.shape == jl.shape
     top = float(np.abs(np.asarray(jl)).max())
-    _close(tl, jl, atol=(ATOL if fp32 else 2 ** -6) * max(1.0, top))
-    jloss, jg = jax.value_and_grad(jt.loss)(jp, jb)
+    _close(tl, jl, rtol=rtol if fp32 else RTOL,
+           atol=(atol if fp32 else logits_steps) * max(1.0, top))
     tloss, tg = _loss_grads(tt, tp, tb)
-    _close(tloss, jloss, rtol=RTOL if fp32 else 1e-3)
+    _close(tloss, jloss, rtol=rtol if fp32 else 1e-3)
     jg = convert.flatten(jax.tree.map(np.asarray, jg))
     assert sorted(jg) == sorted(tg)
     for k, g in tg.items():
         want = np.asarray(jg[k], np.float32)
         assert g.dtype == tp[k].dtype
         if fp32:
-            _close(g, want, msg=k)
+            _close(g, want, rtol=rtol, atol=atol, msg=k)
         else:
             _close(g.float(), want, rtol=0,
-                   atol=2 ** -5 * float(np.abs(want).max()), msg=k)
+                   atol=grad_steps * float(np.abs(want).max(initial=0)),
+                   msg=k)
     # the GNB inner loss, JAX's own categorical draw injected: at fp32
     # the same labels; at bf16 labels may differ only at near-ties of
     # logits + gumbel (within the logits' band), and the loss against
     # JAX's labels is held to the loss band
-    key = jax.random.PRNGKey(9)
     gum = np.array(jax.random.gumbel(key, tl.shape, jnp.float32))
     jy = np.asarray(JT.sample_labels(key, jl, jcfg.vocab_size))
     ty = TT.sample_labels(tl.detach(), tcfg.vocab_size,
                           torch.from_numpy(gum)).numpy()
     if fp32:
         np.testing.assert_array_equal(ty, jy)
-        _close(tt.sampled_loss(tp, tb, torch.from_numpy(gum)),
-               jt.sampled_loss(jp, jb, key))
+        _close(tt.sampled_loss(tp, tb, torch.from_numpy(gum)), jsampled,
+               rtol=rtol)
     else:
         z = np.asarray(jl, np.float32) + gum
         gap = (np.take_along_axis(z, jy[..., None], -1)
                - np.take_along_axis(z, ty[..., None], -1))
-        assert np.all(gap <= 2 * 2 ** -6 * max(1.0, top)), gap.max()
+        assert np.all(gap <= 2 * logits_steps * max(1.0, top)), gap.max()
         _close(TT.cross_entropy(tl, torch.from_numpy(np.array(jy)),
-                                tcfg.vocab_size),
-               jt.sampled_loss(jp, jb, key), rtol=1e-3)
+                                tcfg.vocab_size), jsampled, rtol=1e-3)
 
 
 def test_client_axis_is_a_batch_of_independent_models():
@@ -305,7 +335,12 @@ def test_client_axis_is_a_batch_of_independent_models():
 @pytest.mark.parametrize("arch", DENSE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_tree_packs_bitwise_as_jax(arch, dtype):
-    jcfg, tcfg = _cfgs(arch, dtype)
+    packs_as_jax(*_cfgs(arch, dtype))
+
+
+def packs_as_jax(jcfg, tcfg):
+    """The reduced tree packs and unpacks bitwise as the JAX
+    ``FlatSpec`` does (leaf order, geometry, dtypes, buffer)."""
     jp, tp = _params(jcfg, seed=3)
     jspec, tspec = jflat.flat_spec(jp), tflat.flat_spec(tp)
     jorder = ["/".join(p.key for p in path) for path, _ in
@@ -347,7 +382,7 @@ def test_token_batches():
 
 
 @pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
-                                  if a not in DENSE + MOE])
+                                  if a not in DENSE + MOE + RECURRENT])
 def test_unported_families_raise(arch):
     cfg = configs.get_model_config(arch).reduced(d_model=128)
     with pytest.raises(NotImplementedError, match=r"queue 1 \(g\)"):
@@ -401,12 +436,15 @@ def _bf16_band(got, want, name, flip, msg, outliers=0):
     assert np.all(diff[out] <= flip), (msg, float(diff.max()), flip)
 
 
-def rounds_vs_jitted_jax(arch, strategy, dtype, seq=ES, outliers=0):
+def rounds_vs_jitted_jax(arch, strategy, dtype, seq=ES, outliers=0,
+                         replace=None, fp32_band=None):
     """`ROUNDS` engine rounds of the reduced ``arch`` at ``seq`` tokens
     against ``jax.jit(FedEngine.round)`` from the same state, batches
     and GNB draws, held to the module's engine bands after each round
-    (``outliers``: `_bf16_band`'s)."""
-    jcfg, tcfg = _cfgs(arch, dtype)
+    (``outliers``: `_bf16_band`'s; ``replace``: config fields set in
+    both packages, `_cfgs`; ``fp32_band(got, want, name, flip, msg)``
+    replaces the fp32 engine band, with `_bf16_band`'s arguments)."""
+    jcfg, tcfg = _cfgs(arch, dtype, **(replace or {}))
     kw = dict(num_clients=C, local_iters=J, tau=TAU, lr=1e-3,
               schedule="wsd", total_rounds=4, strategy=strategy)
     jeng = JFedEngine(JT.LMTask(jcfg), JFedConfig(use_pallas=True, **kw))
@@ -436,7 +474,10 @@ def rounds_vs_jitted_jax(arch, strategy, dtype, seq=ES, outliers=0):
                             want["client_opt"]["m"]),
                            ("h", got["client_opt"].h,
                             want["client_opt"]["h"])):
-            if fp32:
+            if fp32 and fp32_band is not None:
+                fp32_band(b, a, name, 2 * kw["lr"] * J * (r + 1) / C,
+                          f"round {r} {name}")
+            elif fp32:
                 _close(b, a, msg=f"round {r} {name}")
             else:
                 _bf16_band(b, a, name, 2 * kw["lr"] * J * (r + 1) / C,
