@@ -63,8 +63,22 @@ deepseek-v2-lite-16b and qwen3-moe-235b-a22b on their strategies,
 deepseek also parallel, with the MoE routing compared choice by choice;
 minicpm-2b at bidir int8/int8/int4, int8 with EF, top-k and SignSGD with
 the majority vote; recurrentgemma-2b at 3 and 5 layers, xlstm-1.3b with
-and without its FFN) and times rows 1, 2, 4 and 5 at the LM slices'
-shapes (`time_lm_kernels`, the ``lm_kernels`` line).
+and without its FFN; since slice 14 qwen2-vl-2b and hubert-xlarge on
+embeds) and times rows 1, 2, 4 and 5 at the LM slices' shapes
+(`time_lm_kernels`, the ``lm_kernels`` line).  Slice 14 trains the
+embedding-input archs at their published widths, parallel, int8:
+hubert-xlarge, a bidirectional encoder, at its full 48 layers, 2 clients
+(`lm_enc`), and qwen2-vl-2b with M-RoPE cut to 2 layers, 4 clients
+(`lm_vlm`); holds every serving cache kind on the card against the CPU
+(`serve_small_check`: reduced, fp32, teacher-forced; logits and caches
+leaf by leaf), and serves through the serve CLI's twin
+(`repro_torch.launch.serve.main`) at the full published depth, bf16:
+qwen2-vl-2b x 28 layers, batch 8, prompt 512, gen 64 on patch
+embeddings, and gemma2-9b x 42 layers, batch 2, prompt 4352 (past its
+4096 window), gen 32 (`lm_serve`: the peak reckoned by buffer first,
+the decode logits against the full forward's, prefill seconds, decode
+p50 / p95 ms, tokens/s, a profiled decode step; no kernel of the table
+runs there).
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
@@ -2926,6 +2940,18 @@ REC_PARAMS, REC_PACKED = 912_314_880, (890_933, 1024)
 XLSTM_ARCH, XLSTM_LAYERS = "xlstm-1.3b", 8
 XLSTM_PARAMS, XLSTM_PACKED = 773_169_208, (755_049, 1024)
 REC_CLIENTS = 2
+#: slice 14's embedding-input paths, parallel (their FED), int8 uplink:
+#: hubert-xlarge (arXiv:2106.07447: d_model 1280, 16 heads, d_ff 5120
+#: GeLU, vocab 504 untied; a bidirectional encoder on frame embeddings)
+#: at its full 48 layers, 2 clients (reckoned near 60 GB); qwen2-vl-2b
+#: (arXiv:2409.12191: d_model 1536, 12 heads of 128 with 2 kv heads,
+#: M-RoPE sections 16 / 24 / 24, d_ff 8960 SwiGLU, vocab 151,936 tied;
+#: on patch embeddings) cut 28 -> 2 layers, 4 clients
+ENC_ARCH, ENC_LAYERS = "hubert-xlarge", 48
+ENC_PARAMS, ENC_PACKED = 945_153_280, (923_002, 1024)
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-2b", 2
+VLM_PARAMS, VLM_PACKED = 327_163_392, (319_496, 1024)
+VLM_CLIENTS = 4
 #: the LM phases through the CLI: (arch, layers, parameters, packed
 #: shape, clients, extra flags, launches of a run of r rounds).
 #: Launches, from `FedEngine._round_comm` / `_round_direct`: each local
@@ -2957,6 +2983,14 @@ LM_PHASES = {
                  REC_CLIENTS, ("--compressor", "int8"),
                  lambda r: expect(sophia_update_batched=r * LM_ITERS,
                                   quant_roundtrip_batched=r)),
+    "lm_enc": (ENC_ARCH, ENC_LAYERS, ENC_PARAMS, ENC_PACKED, REC_CLIENTS,
+               ("--compressor", "int8"),
+               lambda r: expect(sophia_update_batched=r * LM_ITERS,
+                                quant_roundtrip_batched=r)),
+    "lm_vlm": (VLM_ARCH, VLM_LAYERS, VLM_PARAMS, VLM_PACKED, VLM_CLIENTS,
+               ("--compressor", "int8"),
+               lambda r: expect(sophia_update_batched=r * LM_ITERS,
+                                quant_roundtrip_batched=r)),
 }
 #: the phases whose resumed round (round 0's batches again: the CLI
 #: salts batches by the run's round index) must give a loss below the
@@ -2978,6 +3012,19 @@ FP32_LEAVES = ("/router", "/lam", "/w_if", "/b_if", "/b_gates")
 #: name: the Sophia update (rows 1-2) and the quantize round-trip (4-5)
 LM_KERNEL_WORDS = {"Sophia (rows 1-2)": "sophia",
                    "quant round-trip (rows 4-5)": "quant_roundtrip"}
+
+
+def lm_batches(cfg, generator, clients, batch, seq, device):
+    """A round's token batches, and for an embedding-input config N(0, 1)
+    ``embeds`` in its dtype in place of the tokens (the CLI's form)."""
+    b = syn.make_token_batch(generator, clients, batch, seq, cfg.vocab_size,
+                             device=device)
+    if cfg.embedding_inputs:
+        b = {"embeds": torch.randn(
+            (clients, batch, seq, cfg.d_model), generator=generator,
+            device=generator.device).to(getattr(torch, cfg.dtype)).to(
+                device), "labels": b["labels"]}
+    return b
 
 
 def lm_argv(arch, layers, clients, ckpt_dir, rounds, *extra):
@@ -3168,9 +3215,8 @@ def lm_phase(label, device):
         del restored, saved
 
         cfg = engine.task.cfg
-        batches = syn.make_token_batch(gen(device, SEED + 7), clients,
-                                       LM_BATCH, LM_SEQ, cfg.vocab_size,
-                                       device=device)
+        batches = lm_batches(cfg, gen(device, SEED + 7), clients, LM_BATCH,
+                             LM_SEQ, device)
         by_name, span_us = profile_call(
             lambda: engine.round(state, batches,
                                  generator=gen(device, SEED + 8)), steady,
@@ -3259,6 +3305,22 @@ def lm_xlstm(device):
     return lm_phase("lm_xlstm", device)
 
 
+def lm_enc(device):
+    """Slice 14's encoder path: hubert-xlarge at its full 48 layers and
+    published widths on frame embeddings (bidirectional attention; the
+    untied token table enters no op and trains on zero grads), 2 clients
+    on its arch's parallel strategy, ``--compressor int8`` (rows 2 and
+    5)."""
+    return lm_phase("lm_enc", device)
+
+
+def lm_vlm(device):
+    """Slice 14's VLM path: qwen2-vl-2b x 2 layers at its published
+    widths on patch embeddings (M-RoPE, bf16 SwiGLU), 4 clients on its
+    arch's parallel strategy, ``--compressor int8`` (rows 2 and 5)."""
+    return lm_phase("lm_vlm", device)
+
+
 #: the LM's card-against-CPU checks, reduced(d_model=128) at fp32
 #: parameters, J=2, tau=2, batch 2, 2 rounds: (arch, strategy, clients,
 #: seq, comm[, options]), the options `REC_SMALL` / `XLSTM_SMALL` and
@@ -3308,6 +3370,9 @@ LM_SMALL_CASES = {
                             XLSTM_SMALL),
     "xlstm-1.3b parallel, d_ff=0": ("xlstm-1.3b", "parallel", 2, 256, {},
                                     dict(XLSTM_SMALL, replace=dict(d_ff=0))),
+    "qwen2-vl-2b parallel": ("qwen2-vl-2b", "parallel", 2, 32, {}),
+    "hubert-xlarge parallel int8": ("hubert-xlarge", "parallel", 2, 32,
+                                    dict(compressor="int8")),
 }
 
 
@@ -3457,8 +3522,8 @@ def lm_small_case(device, label):
         if r and opts.get("resync"):
             states["card"] = convert.state_from_numpy(
                 convert.state_to_numpy(states["cpu"]), device=device)
-        b = syn.make_token_batch(gen("cpu", SEED + 20 + r), C, sm["batch"],
-                                 seq, cfg.vocab_size)
+        b = lm_batches(cfg, gen("cpu", SEED + 20 + r), C, sm["batch"], seq,
+                       "cpu")
         g = gumbel_noise(gen("cpu", SEED + 30 + r),
                          (C, sm["iters"], sm["batch"], seq,
                           cfg.vocab_padded))
@@ -3532,6 +3597,241 @@ def lm_small_check(device):
         for k, v in lm_small_case(device, label).items():
             total[k] += v
     return total
+
+
+#: slice 14's serving path (`lm_serve`): the serve CLI's twin
+#: (`repro_torch.launch.serve.main`) at the full published depth and
+#: widths, bf16, random weights from the seed: arch -> (batch, prompt,
+#: gen).  qwen2-vl-2b (28 layers) on patch embeddings with M-RoPE, each
+#: sampled token's embed row fed back; gemma2-9b (42 layers) with a
+#: prompt past its 4096 window, so the local layers' rolling buffer is
+#: regrouped and then wrapped
+SERVE_PHASES = {"qwen2-vl-2b": (8, 512, 64), "gemma2-9b": (2, 4352, 32)}
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def reckon_serve_peak(cfg, batch, prompt, gen):
+    """The peak of a serve run and its decode-against-forward check,
+    reckoned by buffer before the run: ``(name, bytes)`` pairs.  What is
+    allocated already (the cuBLAS workspaces, read from the allocator);
+    the weights; the prefill's caches (every attention layer holds the
+    prompt's positions until `prefill_to_decode_cache` regroups them);
+    three fp32 ``(B, P + 1, Vp)`` logits (the check's forward over the
+    prompt and a token: the widened logits, the softcap's quotient and
+    its tanh, or its product); the last hidden state and its norm
+    (bf16); the sampled steps' logits (fp32)."""
+    from repro_torch.models import transformer as T
+    weights = nbytes(T.init_lm(T._ShapeOnly(), cfg).values())
+    caches = nbytes(T.init_cache(dataclasses.replace(cfg, window=None),
+                                 batch, prompt, device="meta").values())
+    tokens = batch * (prompt + 1)
+    return [("allocated before the run", torch.cuda.memory_allocated()),
+            ("weights (bf16)", weights),
+            ("the prefill's caches", caches),
+            ("three fp32 logits over the prompt and a token",
+             3 * 4 * tokens * cfg.vocab_padded),
+            ("the last hidden state and its norm (bf16)",
+             2 * 2 * tokens * cfg.d_model),
+            ("the sampled steps' logits (fp32)",
+             4 * gen * batch * cfg.vocab_padded)]
+
+
+def serve_check_band(cfg) -> float:
+    """The decode-against-forward gate of a bf16 model, as a share of the
+    logits' largest magnitude (above 1): the tests' bf16 logits band of a
+    2-layer model (2^-6: two bf16 steps), grown as the square root of
+    the depth over 2 (each layer's GEMMs round their bf16 outputs at
+    other points when M is one token and when it is the sequence, and
+    the layers' rounding errors add as a random walk)."""
+    return 2 ** -6 * float(np.sqrt(cfg.num_layers / 2))
+
+
+def lm_serve(device):
+    """Slice 14's serving path: `SERVE_PHASES` through ``repro_torch.
+    launch.serve.main`` with ``--obs-log``.  Gates: no kernel of the
+    table launched (the serving path has none: the JAX package's reaches
+    no Pallas kernel); finite logits; the ``serve`` record valid under
+    the schema; the peak at or under its reckoning (`reckon_serve_peak`,
+    printed before the run); the first decode step's logits (position P,
+    from the rolling and padded caches) against the full forward's at
+    position P over the prompt and the first sampled token, within
+    `serve_check_band`.  Prints prefill seconds, the decode steps' p50 /
+    p95 ms, tokens/s and the peak (host clock after a synchronise; the
+    card's name and power limit beside), then profiles one decode step
+    on an empty cache of the same shapes (busy share of the p50 step,
+    device time by class).  Returns the launch counts (all 0)."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.configs import get_model_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    card = card_info()
+    for arch, (B, P, G) in SERVE_PHASES.items():
+        cfg = get_model_config(arch)
+        torch.cuda.empty_cache()
+        parts = reckon_serve_peak(cfg, B, P, G)
+        reckoned = sum(b for _, b in parts)
+        print(f"lm_serve {arch}: reckoned peak {reckoned} bytes: "
+              + "; ".join(f"{name} {b}" for name, b in parts))
+        with tempfile.TemporaryDirectory(prefix="lm_serve_") as tmp:
+            log = str(Path(tmp) / "serve.jsonl")
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            res = serve.main(["--arch", arch, "--batch", str(B),
+                              "--prompt-len", str(P), "--gen", str(G),
+                              "--seed", str(SEED), "--obs-log", log])
+            got = launch_counts()
+            if got != expect():
+                raise SystemExit(f"lm_serve {arch}: launches {got}")
+            recs = obs.read_records(log)
+            for rec in recs:
+                obs.validate_record(rec)
+        params, prompt = res["params"], res["prompt"]
+        if (res["tokens"].shape != (B, G)
+                or not all(torch.isfinite(lg).all() for lg in res["logits"])):
+            raise SystemExit(f"lm_serve {arch}: tokens "
+                             f"{tuple(res['tokens'].shape)}, logits not "
+                             "finite")
+        # the check: the prompt and the first sampled token, whole
+        tok0 = res["tokens"][:, :1]
+        if cfg.embedding_inputs:
+            full = {"embeds": torch.cat([prompt["embeds"],
+                                         params["embed"][tok0]], dim=1)}
+        else:
+            full = {"tokens": torch.cat([prompt["tokens"], tok0], dim=1)}
+        with torch.no_grad():
+            ref = T.forward(params, cfg, full)[0][:, P]
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        dec = res["logits"][1]
+        diff = float((dec - ref).abs().max())
+        top = max(1.0, float(ref.abs().max()))
+        agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+        print(f"lm_serve {arch}: decode logits at position {P} against the "
+              f"full forward's over {P + 1} positions: largest difference "
+              f"{diff} (of the largest logit {top}: {diff / top}; gate "
+              f"{serve_check_band(cfg)}), top-1 agreement {agree}")
+        if diff > serve_check_band(cfg) * top:
+            raise SystemExit(f"lm_serve {arch}: decode against forward "
+                             f"{diff} past the band")
+        rec = [r for r in recs if r["record"] == "serve"][0]
+        q = sorted(res["step_ms"])
+        print(f"lm_serve {arch} x {cfg.num_layers} layers, bf16, batch {B}, "
+              f"prompt {P}, gen {G}: prefill {res['prefill_s']} s, decode "
+              f"p50 {rec['decode_p50_ms']} ms, p95 {rec['decode_p95_ms']} "
+              f"ms (min {q[0]}, max {q[-1]}), {res['tokens_per_s']} tok/s; "
+              f"peak device memory {peak} bytes against the reckoned "
+              f"{reckoned} ({(reckoned - peak) / 1e9} GB under); {card}")
+        if peak > reckoned:
+            raise SystemExit(f"lm_serve {arch}: peak {peak} above the "
+                             f"reckoned {reckoned}")
+        del res, full, ref, dec
+        cache = T.init_cache(cfg, B, P + G, device=device)
+        step = ({"embeds": params["embed"][tok0]} if cfg.embedding_inputs
+                else {"tokens": tok0})
+
+        def run():
+            with torch.no_grad():
+                T.decode_step(params, cfg, step, cache, P)
+        run()
+        print(f"lm_serve {arch}: one profiled decode step (an empty cache "
+              f"of the run's shapes, position {P}); {card}")
+        profile_call(run, rec["decode_p50_ms"] / 1e3, top=8)
+        del params, prompt, cache, step
+        torch.cuda.empty_cache()
+    return expect()
+
+
+#: slice 14's card-against-CPU serving checks: reduced(d_model=128) at
+#: fp32, batch 2, a prompt of 96 (past the reduced window, 64), 8 tokens
+#: teacher-forced (the CPU's samples fed to both), one a cache kind
+SERVE_SMALL = dict(batch=2, prompt=96, gen=8)
+SERVE_SMALL_CASES = {"GQA, qk-norm": "qwen3-14b",
+                     "local / global, both softcaps": "gemma2-9b",
+                     "MLA + MoE": "deepseek-v2-lite-16b",
+                     "RG-LRU": "recurrentgemma-2b",
+                     "mLSTM + sLSTM": "xlstm-1.3b",
+                     "M-RoPE, embeds": "qwen2-vl-2b"}
+
+
+def small_band(label, got, want):
+    """Card against CPU: within ``rtol`` `SMALL_RTOL` and ``atol``
+    `SMALL_ATOL` times the larger of 1 and the largest magnitude (an
+    mLSTM's matrix memory reaches 10^2)."""
+    want = want.cpu().float().numpy()
+    top = max(1.0, float(np.abs(want).max(initial=0)))
+    np.testing.assert_allclose(got.cpu().float().numpy(), want,
+                               rtol=SMALL_RTOL, atol=SMALL_ATOL * top,
+                               err_msg=label)
+
+
+def serve_small_check(device):
+    """Each `SERVE_SMALL_CASES` arch served on the CPU (prefill, then
+    decode steps sampling with seeded gumbel noise) and on the card from
+    the same weights and prompt, the CPU's tokens fed to both: the
+    prefill's and every step's logits, and every cache leaf after the
+    prefill and after the last step (the recurrent states included), in
+    `small_band`.  No kernel of the table launches (asserted).  Returns
+    the launch counts."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.models import transformer as T
+    B, P, G = (SERVE_SMALL[k] for k in ("batch", "prompt", "gen"))
+    for label, arch in SERVE_SMALL_CASES.items():
+        cfg = dataclasses.replace(get_model_config(arch).reduced(d_model=128),
+                                  dtype="float32")
+        params = T.init_lm(gen("cpu", SEED + 50), cfg)
+        g = gen("cpu", SEED + 51)
+        prompt = ({"embeds": torch.randn(B, P, cfg.d_model, generator=g)}
+                  if cfg.embedding_inputs else
+                  {"tokens": torch.randint(0, cfg.vocab_size, (B, P),
+                                           generator=g)})
+        runs = {}
+        tokens = []
+        reset_launches()
+        for key, dev in (("cpu", torch.device("cpu")), ("card", device)):
+            p = {k: v.to(dev) for k, v in params.items()}
+            logits, caches = [], []
+            with torch.no_grad():
+                lg, cache, _ = T.forward(p, cfg, {k: v.to(dev) for k, v in
+                                                  prompt.items()},
+                                         want_cache=True)
+                logits.append(lg[:, -1].cpu())
+                # copies: decode writes the recurrent states in place
+                caches.append({k: v.to("cpu", copy=True)
+                               for k, v in cache.items()})
+                cache = T.prefill_to_decode_cache(cfg, cache, P, P + G)
+                for i in range(G):
+                    if key == "cpu":
+                        tokens.append(T.sample_labels(
+                            logits[-1], cfg.vocab_size,
+                            gumbel_noise(gen("cpu", SEED + 60 + i),
+                                         logits[-1].shape)))
+                    tok = tokens[i].to(dev)
+                    step = ({"embeds": p["embed"][tok][:, None]}
+                            if cfg.embedding_inputs
+                            else {"tokens": tok[:, None]})
+                    lg, cache = T.decode_step(p, cfg, step, cache, P + i)
+                    logits.append(lg[:, -1].cpu())
+                caches.append({k: v.cpu() for k, v in cache.items()})
+            runs[key] = (logits, caches)
+        if launch_counts() != expect():
+            raise SystemExit(f"serve small check {label}: launches "
+                             f"{launch_counts()}")
+        (want_l, want_c), (got_l, got_c) = runs["cpu"], runs["card"]
+        for i, (gl, wl) in enumerate(zip(got_l, want_l)):
+            small_band(f"serve small check {label}: logits {i}", gl, wl)
+        for stage, gc, wc in zip(("prefill", "last step"), got_c, want_c):
+            for k, v in wc.items():
+                small_band(f"serve small check {label}: {stage} {k}",
+                           gc[k], v)
+        print(f"serve small check ({label}, {arch} reduced, fp32, card vs "
+              f"CPU, prompt {P}, {G} tokens teacher-forced): logits and "
+              f"the {len(want_c[1])} cache leaves within rtol {SMALL_RTOL} "
+              f"/ atol {SMALL_ATOL} of the largest magnitude")
+    return expect()
 
 
 #: the LM entries' timing: fewer launches (each is milliseconds), the
@@ -3819,7 +4119,10 @@ def main() -> None:
     lm_launches = {"lm_small_check": lm_small_check(device),
                    "lm_train": lm_train(device), "lm_comm": lm_comm(device),
                    "lm_seq": lm_seq(device), "lm_moe": lm_moe(device),
-                   "lm_rec": lm_rec(device), "lm_xlstm": lm_xlstm(device)}
+                   "lm_rec": lm_rec(device), "lm_xlstm": lm_xlstm(device),
+                   "lm_enc": lm_enc(device), "lm_vlm": lm_vlm(device),
+                   "serve_small_check": serve_small_check(device),
+                   "lm_serve": lm_serve(device)}
     for path_launches in lm_launches.values():
         for k, v in path_launches.items():
             launches[k] += v

@@ -12,7 +12,8 @@ resident stacks — the uplink EF residuals ``comm_ef`` and the downlink
 replicas and residuals ``comm_dn_model``, ``comm_dn_ef`` — are carried
 as they are, where present.
 
-Parameter trees cross in both shapes: the JAX package's nested dicts
+Parameter trees (and serving caches, `cache_from_numpy`) cross in both
+shapes: the JAX package's nested dicts
 (the LM zoo's ``{"blocks_0": {"mixer": {"wq": ...}}}``) come in as the
 port's flat dict keyed by ``/``-joined paths (``"blocks_0/mixer/wq"``,
 the keys of the JAX package's checkpoints), and go back out nested
@@ -118,6 +119,11 @@ def params_from_numpy(params: Dict[str, Any],
     """Numpy leaves (a flat or nested dict) -> the port's flat dict."""
     dev = resolve_device(device)
     return {k: _tensor(v, dev) for k, v in flatten(params).items()}
+
+
+#: a serving cache (the JAX package's nested ``{"g0": {"k": ...}}``)
+#: crosses as a params tree does, to the flat ``g0/k``-keyed dict
+cache_from_numpy = params_from_numpy
 
 
 def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:

@@ -1116,11 +1116,15 @@ class FedEngine:
         keys = list(spec.keys)           # sorted: the JAX leaf order
         leaves = [params[k] for k in keys]
         loss = self.task.loss(params, batch)
-        g = torch.autograd.grad(loss.sum(), leaves, create_graph=True)
+        g = leaf_grads(loss.sum(), leaves, create_graph=True)
         g0 = [x.detach() for x in g]
+        # the grads with a graph: an unreached leaf's zeros have none,
+        # and add nothing to a product
+        live = [i for i, x in enumerate(g) if x.requires_grad]
 
         def hvp(d):
-            hd = torch.autograd.grad(g, leaves, grad_outputs=d,
+            hd = torch.autograd.grad([g[i] for i in live], leaves,
+                                     grad_outputs=[d[i] for i in live],
                                      retain_graph=True, allow_unused=True)
             return [torch.zeros_like(x) if y is None else y.detach()
                     for x, y in zip(d, hd)]

@@ -40,14 +40,17 @@ def gnb_estimate(task, params: Dict[str, torch.Tensor], batch,
     return {k: B * g * g for k, g in zip(keys, g_hat)}
 
 
-def leaf_grads(loss: torch.Tensor, leaves):
-    """``torch.autograd.grad(loss, leaves)``, where a zero-size leaf (an
-    LM's zero-length layer stack, at a depth below its block pattern's
-    length) reaches no op and gets its empty gradient."""
-    live = [x for x in leaves if x.numel()]
-    grads = iter(torch.autograd.grad(loss, live))
-    return [next(grads) if x.numel() else torch.zeros_like(x)
-            for x in leaves]
+def leaf_grads(loss: torch.Tensor, leaves, create_graph: bool = False):
+    """``torch.autograd.grad(loss, leaves)``, where a leaf that reaches
+    no op gets zeros of its shape, as ``jax.grad`` gives it: an LM's
+    zero-length layer stack (a depth below its block pattern's length),
+    or the token table of an untied embedding-input config, which reads
+    ``embeds``.  ``create_graph`` keeps the graph of every grad that has
+    one (a Hessian-vector product's)."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                create_graph=create_graph)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(leaves, grads)]
 
 
 def labels_of(batch) -> torch.Tensor:

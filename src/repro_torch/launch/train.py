@@ -3,7 +3,9 @@ on an LM of the zoo, the twin of the JAX package's
 ``repro/launch/train.py`` with its arguments plus ``--device`` and
 ``--layers`` (cut the depth, keep the published widths; a depth below
 the arch's block pattern keeps its first blocks, as JAX builds it, e.g.
-xlstm-1.3b at 2 layers two mLSTM blocks).  Runs on the
+xlstm-1.3b at 2 layers two mLSTM blocks).  An embedding-input arch
+(qwen2-vl-2b, hubert-xlarge) trains on N(0, 1) input embeddings in its
+dtype with the token batches' labels, as the JAX CLI builds them.  Runs on the
 card; ``--device cpu`` runs the plain PyTorch versions of the kernels
 (the tests' route).  Without a card and without that flag it raises:
 
@@ -26,8 +28,9 @@ CLI, which passes only ``schedule`` on, the strategy too: gemma2-9b,
 qwen3-14b, deepseek-v2-lite-16b and qwen3-moe-235b-a22b train on the
 sequential strategy, as their configs ask.
 
-Randomness: the weights, the token batches and each round's GNB noise
-come from `torch.Generator`s seeded from ``--seed``.  `main` also takes
+Randomness: the weights, the token batches, the input embeddings and
+each round's GNB noise come from `torch.Generator`s seeded from
+``--seed``.  `main` also takes
 ``hooks`` (the RNG seam of the tests): ``params`` (initial weights as
 numpy arrays, flat or nested), ``batches`` (round -> batch dict),
 ``round_kwargs`` (round -> extra `FedEngine.round` arguments, e.g. the
@@ -60,8 +63,9 @@ from repro_torch.robust import aggregators as robust_agg
 from repro_torch.robust import attacks as robust_attacks
 from repro_torch.sched import VirtualScheduler
 
-#: generator salts: weights, round r's batches, round r's GNB noise
-_INIT_SALT, _BATCH_SALT, _ROUND_SALT = 0, 1000, 2000
+#: generator salts: weights, round r's batches, round r's GNB noise,
+#: round r's input embeddings (embedding-input archs)
+_INIT_SALT, _BATCH_SALT, _ROUND_SALT, _EMBED_SALT = 0, 1000, 2000, 3000
 
 
 def _generator(device, seed: int, salt: int) -> torch.Generator:
@@ -409,6 +413,14 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
                 robust_attacks.corrupt_labels(
                     robust, batches["labels"].cpu().numpy(), noisy,
                     cfg.vocab_size), device=dev))
+        if cfg.embedding_inputs and "embeds" not in batches:
+            # an embedding-input arch reads a frontend's output: N(0, 1)
+            # frames in the parameters' dtype, with the token labels
+            shape = tuple(batches["labels"].shape) + (cfg.d_model,)
+            batches = {"embeds": torch.randn(
+                shape, generator=_generator(dev, args.seed, _EMBED_SALT + r),
+                device=dev).to(T.param_dtype(cfg)),
+                "labels": batches["labels"]}
         return batches
 
     def round_kwargs(r):

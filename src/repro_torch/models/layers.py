@@ -1,8 +1,12 @@
 """Neural-net primitives of the LM zoo: the port of the JAX package's
-``models/layers.py`` for the attention-block decoders (GQA / MHA
-attention with RoPE, qk-norm, a sliding window and a logit softcap;
-DeepSeek-V2's MLA attention; swiglu / geglu / gelu FFN; the
-capacity-routed MoE FFN with shared experts; RMSNorm).
+``models/layers.py`` (GQA / MHA attention with RoPE or M-RoPE, qk-norm,
+a sliding window and a logit softcap; DeepSeek-V2's MLA attention;
+swiglu / geglu / gelu FFN; the capacity-routed MoE FFN with shared
+experts; RMSNorm), and the attention and MLA decode caches: a
+full-sequence call returns its k / v (or latent) cache on request, a
+one-token decode call at a position writes its slot of the cache in
+place (`write_slot`: ``jax.lax.dynamic_update_slice``'s clamp) and
+attends over the valid slots.
 
 Everything is functional.  A parameter tree is a flat
 ``dict[str, Tensor]`` keyed by ``/``-joined paths (``"mixer/wq"``),
@@ -169,11 +173,13 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_act(kind: str, gate, up):
-    # swiglu keeps F.silu (one rounding at bf16, a step off JAX's `silu`
-    # in about a third of values): `silu` there flips a near-tie MoE
-    # routing choice of the reduced deepseek-v2-lite-16b (ROADMAP queue 3)
+    """The FFN activations of ``jax.nn`` in each dtype: swiglu at bf16
+    is `silu` op by op (JAX's bits; ``F.silu`` rounds once, a third of
+    bf16 values a step off), at fp32 ``F.silu`` (nearer XLA's than ``x *
+    torch.sigmoid(x)``); the GeLU kinds `gelu_tanh`."""
     if kind == "swiglu":
-        return F.silu(gate) * up
+        act = F.silu(gate) if gate.dtype == torch.float32 else silu(gate)
+        return act * up
     if kind == "geglu":
         return gelu_tanh(gate) * up
     if kind == "gelu":
@@ -182,7 +188,7 @@ def ffn_act(kind: str, gate, up):
 
 
 # --------------------------------------------------------------------------
-# RoPE (standard / partial)
+# RoPE (standard / partial / M-RoPE)
 # --------------------------------------------------------------------------
 
 def _rope_sin_cos(positions: torch.Tensor, rot_dim: int, theta: float):
@@ -194,18 +200,40 @@ def _rope_sin_cos(positions: torch.Tensor, rot_dim: int, theta: float):
     return torch.sin(angles), torch.cos(angles)
 
 
+def _mrope_sin_cos(positions: torch.Tensor, sections, half: int,
+                   theta: float):
+    """M-RoPE: the ``half`` frequency slots split into (t, h, w)
+    sections, each section's angles from its own channel of
+    ``positions (3, B, S)``; sin/cos (B, S, half) in fp32."""
+    sins, coss, start = [], [], 0
+    for sec, pos_c in zip(sections, positions):
+        idx = torch.arange(start, start + sec, dtype=torch.float32,
+                           device=positions.device)
+        inv = 1.0 / (theta ** (idx / half))
+        ang = pos_c.to(torch.float32)[..., None] * inv
+        sins.append(torch.sin(ang))
+        coss.append(torch.cos(ang))
+        start += sec
+    return torch.cat(sins, dim=-1), torch.cat(coss, dim=-1)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                rot_dim: Optional[int] = None) -> torch.Tensor:
-    """x: (*lead, B, S, H, hd).  positions: (B, S)."""
-    if cfg.mrope_sections is not None or positions.ndim == 3:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet: ROADMAP queue 1 (g)")
+    """x: (*lead, B, S, H, hd).  positions: (B, S), or (3, B, S) for
+    M-RoPE (``cfg.mrope_sections``; without sections the three channels
+    collapse to the first, a text-only input)."""
     hd = x.shape[-1]
     if rot_dim is None:
         rot_dim = int(hd * cfg.rotary_pct)
         rot_dim -= rot_dim % 2
     half = rot_dim // 2
-    sin, cos = _rope_sin_cos(positions, rot_dim, cfg.rope_theta)
+    if cfg.mrope_sections is not None and positions.ndim == 3:
+        sin, cos = _mrope_sin_cos(positions, cfg.mrope_sections, half,
+                                  cfg.rope_theta)
+    else:
+        if positions.ndim == 3:
+            positions = positions[0]
+        sin, cos = _rope_sin_cos(positions, rot_dim, cfg.rope_theta)
     sin, cos = sin[:, :, None, :], cos[:, :, None, :]
     rot, rest = x[..., :rot_dim], x[..., rot_dim:]
     r1, r2 = rot[..., :half], rot[..., half:]
@@ -213,6 +241,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     out = torch.cat([r1f * cos - r2f * sin, r2f * cos + r1f * sin],
                     dim=-1).to(x.dtype)
     return torch.cat([out, rest], dim=-1) if rest.shape[-1] else out
+
+
+def seq_positions(positions: torch.Tensor) -> torch.Tensor:
+    """The ``(S,)`` positions of a full-sequence mask: the first row of
+    ``positions (B, S)``, or of its first channel ``(3, B, S)``."""
+    while positions.ndim > 1:
+        positions = positions[0]
+    return positions
 
 
 # --------------------------------------------------------------------------
@@ -363,12 +399,33 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def write_slot(buf: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """``jax.lax.dynamic_update_slice`` of a one-position update along
+    ``buf``'s axis 1 (the sequence axis of a ``(B, L, ...)`` cache), in
+    place: a negative start counted from the end, then clamped into
+    ``[0, L - 1]``, as JAX does so that the update fits (an indexed
+    write would raise past the end)."""
+    n = buf.shape[1]
+    start = int(start)
+    slot = min(max(start + n if start < 0 else start, 0), n - 1)
+    buf[:, slot:slot + 1] = new
+
+
 def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, *, kind: str) -> torch.Tensor:
-    """x (*lead, B, S, D), positions (B, S); full sequence (no cache:
-    decode comes with the serving slice).  A ``local`` block attends
-    within ``cfg.window``; with ``cfg.qk_norm`` q and k are RMS-normed
-    over the head dim before RoPE.  Returns the mixer output."""
+                    positions: torch.Tensor, *, kind: str, cache=None,
+                    pos: Optional[int] = None, want_cache: bool = False):
+    """x (*lead, B, S, D), positions (B, S) or (3, B, S).  A ``local``
+    block attends within ``cfg.window``; with ``cfg.qk_norm`` q and k are
+    RMS-normed over the head dim before RoPE.  Returns the mixer output,
+    or ``(out, cache)`` with ``want_cache`` or a ``cache``.
+
+    Full sequence (``cache`` None): the cache is ``{"k", "v"}``, each
+    ``(B, S, K, hd)``.  Decode (``cache`` of `init_attention_cache`'s
+    layout, S == 1 at the absolute position ``pos``): this token's k and
+    v are written into the cache in place, at ``pos % W`` in a ``local``
+    block's rolling buffer of W slots and at ``min(pos, W - 1)`` in a
+    full one (`write_slot`), and the query attends to every valid slot
+    (non-causal, ``k_valid``), as the JAX package's decode branch."""
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     if cfg.pad_attn_heads:
         H = max(cfg.pad_attn_heads, H)      # zero no-op heads (see init)
@@ -382,17 +439,53 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
-    q_pos = positions[0]                    # (S,)
-    out = attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=cfg.causal,
-                    window=window, softcap_val=cfg.softcap_attn,
-                    chunk_threshold=cfg.attn_chunk_threshold,
-                    kv_chunk=cfg.attn_kv_chunk)
+    if cache is None:
+        q_pos = seq_positions(positions)
+        out = attention(q, k, v, q_pos=q_pos, k_pos=q_pos,
+                        causal=cfg.causal, window=window,
+                        softcap_val=cfg.softcap_attn,
+                        chunk_threshold=cfg.attn_chunk_threshold,
+                        kv_chunk=cfg.attn_kv_chunk)
+        new_cache = {"k": k, "v": v}
+    else:
+        ck, cv = cache["k"], cache["v"]
+        W = ck.shape[1]
+        slot = pos % W if window is not None else min(pos, W - 1)
+        write_slot(ck, k, slot)
+        write_slot(cv, v, slot)
+        idx = torch.arange(W, device=x.device)
+        if window is not None:
+            # the rolling buffer's absolute positions
+            k_pos = torch.where(idx <= slot, pos - (slot - idx),
+                                pos - (slot - idx) - W)
+            k_valid = k_pos >= 0
+        else:
+            k_pos = idx
+            k_valid = k_pos <= pos
+        out = attention(q, ck, cv, q_pos=torch.full((1,), pos,
+                                                    device=x.device),
+                        k_pos=k_pos, causal=False, window=None,
+                        softcap_val=cfg.softcap_attn, k_valid=k_valid)
+        new_cache = cache
     if cfg.pad_attn_heads:
         # zero the padded heads' outputs, so the zero wo rows get no
         # gradient either
         out = out * pad_head_mask(cfg, x.device).reshape(H, hd).to(
             out.dtype)
-    return matmul(out.reshape(tok + (H * hd,)), p["wo"])
+    out = matmul(out.reshape(tok + (H * hd,)), p["wo"])
+    return (out, new_cache) if want_cache or cache is not None else out
+
+
+def init_attention_cache(cfg: ModelConfig, kind: str, batch: int,
+                         max_len: int, dtype: torch.dtype,
+                         device=None) -> Params:
+    """Zero k and v ``(batch, L, K, hd)``: L = ``min(window, max_len)``
+    for a ``local`` block (its rolling buffer), else ``max_len``."""
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    n = (min(cfg.window, max_len) if kind == "local" and cfg.window
+         else max_len)
+    return {name: torch.zeros(batch, n, K, hd, dtype=dtype, device=device)
+            for name in ("k", "v")}
 
 
 # --------------------------------------------------------------------------
@@ -434,12 +527,18 @@ def _mla_kv(p: Params, cfg: ModelConfig, ckv_norm: torch.Tensor,
 
 
 def mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """x (*lead, B, S, D), positions (B, S); full sequence (the latent
-    cache of decode comes with the serving slice).  Scores are scaled by
-    ``1/sqrt(nope + rope)``, and the dispatcher gets no chunking options
-    of the config (the JAX package's MLA passes none).  Returns the
-    mixer output."""
+              positions: torch.Tensor, *, cache=None,
+              pos: Optional[int] = None, want_cache: bool = False):
+    """x (*lead, B, S, D), positions (B, S) or (3, B, S).  Scores are
+    scaled by ``1/sqrt(nope + rope)``, and the dispatcher gets no
+    chunking options of the config (the JAX package's MLA passes none).
+    Returns the mixer output, or ``(out, cache)`` with ``want_cache`` or
+    a ``cache``.
+
+    The cache is the normed latent and the RoPE key, ``{"ckv" (B, L,
+    rank), "kpe" (B, L, rope)}``.  Decode (S == 1 at ``pos``) writes
+    them at ``pos`` in place (`write_slot`'s clamp) and up-projects the
+    whole cache to k and v each step, as JAX does."""
     m = cfg.mla
     H = cfg.num_heads
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
@@ -452,11 +551,34 @@ def mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ckv = rms_norm(dkv[..., :m.kv_lora_rank], p["kv_norm"])
     kpe = apply_rope(dkv[..., None, m.kv_lora_rank:], positions, cfg,
                      rot_dim=rope)[..., 0, :]
-    k, v = _mla_kv(p, cfg, ckv, kpe, H)
-    q_pos = positions[0]                    # (S,)
-    out = attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=cfg.causal,
-                    scale=1.0 / math.sqrt(nope + rope))
-    return matmul(out.reshape(tok + (H * m.v_head_dim,)), p["wo"])
+    scale = 1.0 / math.sqrt(nope + rope)
+    if cache is None:
+        k, v = _mla_kv(p, cfg, ckv, kpe, H)
+        q_pos = seq_positions(positions)
+        out = attention(q, k, v, q_pos=q_pos, k_pos=q_pos,
+                        causal=cfg.causal, scale=scale)
+        new_cache = {"ckv": ckv, "kpe": kpe}
+    else:
+        write_slot(cache["ckv"], ckv, pos)
+        write_slot(cache["kpe"], kpe, pos)
+        k, v = _mla_kv(p, cfg, cache["ckv"], cache["kpe"], H)
+        k_pos = torch.arange(k.shape[-3], device=x.device)
+        out = attention(q, k, v, q_pos=torch.full((1,), pos,
+                                                  device=x.device),
+                        k_pos=k_pos, causal=False, scale=scale,
+                        k_valid=k_pos <= pos)
+        new_cache = cache
+    out = matmul(out.reshape(tok + (H * m.v_head_dim,)), p["wo"])
+    return (out, new_cache) if want_cache or cache is not None else out
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device=None) -> Params:
+    m = cfg.mla
+    return {"ckv": torch.zeros(batch, max_len, m.kv_lora_rank, dtype=dtype,
+                               device=device),
+            "kpe": torch.zeros(batch, max_len, m.qk_rope_head_dim,
+                               dtype=dtype, device=device)}
 
 
 # --------------------------------------------------------------------------
@@ -540,19 +662,27 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_route(cfg: ModelConfig, probs: torch.Tensor):
+def moe_route(cfg: ModelConfig, probs: torch.Tensor,
+              expert_idx: Optional[torch.Tensor] = None):
     """The router's choices from its probabilities ``probs (*lead, B, S,
     E)``: ``expert_idx`` ``(*lead, B, S, K)`` (top-k) and the ``(*lead,
     B, S, E, C)`` ``combine`` weights, each kept choice's renormalised
     gate at its capacity slot.  Selections are taken in ``kk`` order,
     each expert's slots filled along the sequence; a choice past its
     expert's capacity C is dropped (a zero row).  The JAX package's
-    ``moe_apply`` bookkeeping, a client axis in front."""
+    ``moe_apply`` bookkeeping, a client axis in front.
+
+    ``expert_idx`` given (the seam of the tests: the JAX package's own
+    choices, in its order) takes the place of the top-k; the gates are
+    then ``probs`` at those choices, which the top-k's values are."""
     mo = cfg.moe
     S, E = probs.shape[-2:]
     K = mo.top_k
     C = max(int(S * K / E * mo.capacity_factor), 1)
-    gate_vals, expert_idx = top_k(probs, K)
+    if expert_idx is None:
+        gate_vals, expert_idx = top_k(probs, K)
+    else:
+        gate_vals = torch.gather(probs, -1, expert_idx)
     gate_vals = gate_vals / torch.clamp(
         torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
     combine = torch.zeros(probs.shape + (C,), dtype=torch.float32,

@@ -1,8 +1,9 @@
 """Recurrent sequence mixers of the LM zoo: the port of the JAX package's
-``models/recurrent.py`` for full sequences (train): RG-LRU with its
-causal depthwise conv (Griffin / recurrentgemma), the chunkwise mLSTM
-and the sequential sLSTM (xLSTM).  The decode caches (``cache=``) wait
-for ROADMAP queue 1 (g) 4.
+``models/recurrent.py``: RG-LRU with its causal depthwise conv (Griffin
+/ recurrentgemma), the chunkwise mLSTM and the sequential sLSTM
+(xLSTM), over full sequences (train, prefill) and one token at a time
+from a cache (decode: the conv's past and each mixer's fp32 state,
+``init_*_cache``, written in place).
 
 The reference is plain ``jnp`` with ``lax.associative_scan`` and
 ``lax.scan``, and so is this port plain PyTorch: `associative_scan` is
@@ -28,14 +29,16 @@ scales a narrow tensor is rounded to that dtype first
 (`repro_torch.models.layers.scalar`), as JAX rounds a weak-typed
 scalar; the sigmoids and GeLUs are `layers`' JAX forms.
 
-Each mixer's recurrence runs inside a `torch.profiler.record_function`
-range (`RGLRU_SPAN`, `MLSTM_SPAN`, `SLSTM_SPAN`), forward and backward
-(`_spanned`), so a profile reads each scan's share of a round.
+Each mixer's full-sequence recurrence runs inside a
+`torch.profiler.record_function` range (`RGLRU_SPAN`, `MLSTM_SPAN`,
+`SLSTM_SPAN`), forward and backward (`_spanned`), so a profile reads
+each scan's share of a round; a decode step's one update runs outside
+them.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -145,16 +148,22 @@ def associative_scan(combine: Callable, elems: Sequence[torch.Tensor],
     return tuple(_interleave(a, b, dim) for a, b in zip(even, odd))
 
 
-def causal_conv1d(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def causal_conv1d(u: torch.Tensor, w: torch.Tensor,
+                  conv_state: Optional[torch.Tensor] = None):
     """Depthwise causal conv: ``u (*lead, B, S, W)``, taps ``w (*lead,
-    cw, W)``; ``out[t] = sum_i u[t - cw + 1 + i] * w[i]`` over a zero
-    past, the taps added in ``i`` order from Python's ``sum``."""
+    cw, W)``; ``out[t] = sum_i u[t - cw + 1 + i] * w[i]`` over the past
+    ``conv_state (*lead, B, cw - 1, W)`` (zeros when None), the taps
+    added in ``i`` order from Python's ``sum``.  Returns ``(out,
+    new_state)``, the state the last ``cw - 1`` inputs (with the past
+    before them)."""
     cw, S = w.shape[-2], u.shape[-2]
-    past = torch.zeros(u.shape[:-2] + (cw - 1, u.shape[-1]), dtype=u.dtype,
-                       device=u.device)
-    padded = torch.cat([past, u], dim=-2)
-    return sum(padded[..., i:i + S, :] * L._vec(w.select(-2, i), u)
-               for i in range(cw))
+    if conv_state is None:
+        conv_state = torch.zeros(u.shape[:-2] + (cw - 1, u.shape[-1]),
+                                 dtype=u.dtype, device=u.device)
+    padded = torch.cat([conv_state, u], dim=-2)
+    out = sum(padded[..., i:i + S, :] * L._vec(w.select(-2, i), u)
+              for i in range(cw))
+    return out, padded[..., S:, :]
 
 
 def _no_inf(x: torch.Tensor) -> torch.Tensor:
@@ -244,15 +253,46 @@ def _lru_scan(a: torch.Tensor, scaled: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """x ``(*lead, B, S, D)``; full sequence.  ``h_t = a_t h_{t-1} +
-    sqrt(1 - a_t^2) (i_t u_t)`` by `associative_scan` (`RGLRU_SPAN`),
-    gated by ``gelu(x W_gate)``.  Returns the mixer output."""
+                positions: torch.Tensor, *, cache=None,
+                pos: Optional[int] = None, want_cache: bool = False):
+    """x ``(*lead, B, S, D)``.  ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2)
+    (i_t u_t)``, gated by ``gelu(x W_gate)``: over a full sequence by
+    `associative_scan` (`RGLRU_SPAN`), from a ``cache`` (decode, S ==
+    1) one step from its fp32 ``state``.  Returns the mixer output, or
+    ``(out, cache)`` with ``want_cache`` or a ``cache``: ``{"state" (B,
+    W) fp32, "conv" (B, cw - 1, W)}``, the last step's h and the conv's
+    past; a given cache is written in place."""
     gate = L.gelu_tanh(L.matmul(x, p["w_gate_in"]))
-    u = causal_conv1d(L.matmul(x, p["w_in"]), p["conv_w"])
+    u, conv = causal_conv1d(L.matmul(x, p["w_in"]), p["conv_w"],
+                            None if cache is None else cache["conv"])
     log_a, scaled = _rglru_gates(p, u)
-    h = _spanned(RGLRU_SPAN, _lru_scan, (torch.exp(log_a), scaled))
-    return L.matmul(h.to(x.dtype) * gate, p["w_out"])
+    if cache is None:
+        h = _spanned(RGLRU_SPAN, _lru_scan, (torch.exp(log_a), scaled))
+    else:
+        h = torch.exp(log_a) * cache["state"][..., None, :] + scaled
+    out = L.matmul(h.to(x.dtype) * gate, p["w_out"])
+    if cache is None and not want_cache:
+        return out
+    return out, _store(cache, {"state": h[..., -1, :], "conv": conv})
+
+
+def _store(cache, new: Params) -> Params:
+    """``new`` as the cache: written into a given ``cache``'s tensors in
+    place (decode), or ``new`` itself (a full sequence)."""
+    if cache is None:
+        return new
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device=None) -> Params:
+    W = cfg.lru_width or cfg.d_model
+    return {"state": torch.zeros(batch, W, dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros(batch, cfg.conv_width - 1, W, dtype=dtype,
+                                device=device)}
 
 
 # --------------------------------------------------------------------------
@@ -353,18 +393,46 @@ def _mlstm_chunk_scan(q, k, v, li, lf, cdt=torch.float32):
     return torch.cat(hs, dim=-2), (C, n, m)
 
 
+def _mlstm_step(q, k, v, li, lf, state):
+    """The mLSTM's one-step recurrent update (decode, S == 1) from its
+    stabilized fp32 ``state = (C, n, m)``: q, k, v ``(..., H, 1, dh)``,
+    li, lf ``(..., H, 1)``.  Returns ``(h (..., H, 1, dh), (C, n,
+    m))``."""
+    C, n, m = state
+    li0, lf0 = li[..., 0], lf[..., 0]
+    m_new = torch.maximum(lf0 + m, li0)
+    fp = torch.exp(lf0 + m - m_new)
+    ip = torch.exp(li0 - m_new)
+    q0, k0, v0 = (t[..., 0, :].to(torch.float32) for t in (q, k, v))
+    C = fp[..., None, None] * C + ip[..., None, None] * (
+        k0[..., :, None] * v0[..., None, :])
+    n = fp[..., None] * n + ip[..., None] * k0
+    num = (q0[..., None, :] @ C)[..., 0, :]
+    den = torch.maximum(torch.abs(torch.sum(q0 * n, dim=-1)),
+                        torch.exp(-m_new))
+    return (num / den[..., None])[..., None, :], (C, n, m_new)
+
+
 def mlstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """x ``(*lead, B, S, D)``; full sequence, S a whole number of
+                positions: torch.Tensor, *, cache=None,
+                pos: Optional[int] = None, want_cache: bool = False):
+    """x ``(*lead, B, S, D)``; a full sequence is a whole number of
     `MLSTM_CHUNK` chunks (or shorter).  Up-projection, causal conv and
     SiLU, q / k / v heads, exponential input and sigmoid forget gates
-    (fp32), the chunk scan (`MLSTM_SPAN`) in ``cfg.scan_compute_dtype``,
-    the SiLU output gate and the down-projection."""
+    (fp32), the recurrence: over a full sequence the chunk scan
+    (`MLSTM_SPAN`) in ``cfg.scan_compute_dtype``, from a ``cache``
+    (decode, S == 1) `_mlstm_step`; the SiLU output gate and the
+    down-projection.  Returns the mixer output, or ``(out, cache)`` with
+    ``want_cache`` or a ``cache``: ``{"C" (B, H, dh, dh), "n" (B, H,
+    dh), "m" (B, H)`` fp32, ``"conv" (B, cw - 1, inner)}``; a given
+    cache is written in place."""
     S = x.shape[-2]
     inner, H, dh = _mlstm_dims(cfg)
     z = L.matmul(x, p["w_up"])
     og = L.silu(L.matmul(x, p["w_up_gate"]))
-    zc = L.silu(causal_conv1d(z, p["conv_w"]))
+    zc, conv = causal_conv1d(z, p["conv_w"],
+                             None if cache is None else cache["conv"])
+    zc = L.silu(zc)
 
     def heads(t):                       # (..., S, H*dh) -> (..., H, S, dh)
         return t.reshape(t.shape[:-1] + (H, dh)).transpose(-3, -2)
@@ -375,12 +443,39 @@ def mlstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
              + L._vec(p["b_if"], zc))
     li = gates[..., :H].transpose(-1, -2)           # (..., H, S)
     lf = log_sigmoid(gates[..., H:]).transpose(-1, -2)
-    cdt = getattr(torch, cfg.scan_compute_dtype)
-    h = _spanned(MLSTM_SPAN,
-                 lambda *a: _mlstm_chunk_scan(*a, cdt=cdt)[0],
-                 (q, k, v, li, lf))
+    if cache is None:
+        cdt = getattr(torch, cfg.scan_compute_dtype)
+        h, *state = _spanned(
+            MLSTM_SPAN, lambda *a: _flat(_mlstm_chunk_scan(*a, cdt=cdt)),
+            (q, k, v, li, lf))
+    else:
+        h, state = _mlstm_step(q, k, v, li, lf,
+                               (cache["C"], cache["n"], cache["m"]))
     h = h.transpose(-3, -2).reshape(x.shape[:-2] + (S, inner)).to(x.dtype)
-    return L.matmul(h * og, p["w_down"])
+    out = L.matmul(h * og, p["w_down"])
+    if cache is None and not want_cache:
+        return out
+    return out, _store(cache, dict(zip(("C", "n", "m"), state),
+                                   conv=conv))
+
+
+def _flat(out):
+    """``(h, (C, n, m))`` as ``(h, C, n, m)`` (`_spanned` takes a flat
+    tuple)."""
+    h, state = out
+    return (h,) + tuple(state)
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device=None) -> Params:
+    """Zero C and n; m at -1e30 (no step yet), as in JAX."""
+    inner, H, dh = _mlstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros(batch, H, dh, dh, **f32),
+            "n": torch.zeros(batch, H, dh, **f32),
+            "m": torch.full((batch, H), -1e30, **f32),
+            "conv": torch.zeros(batch, cfg.conv_width - 1, inner,
+                                dtype=dtype, device=device)}
 
 
 # --------------------------------------------------------------------------
@@ -433,26 +528,34 @@ def _slstm_step(rg4, carry, wx_t):
     return h, c, n, m_new
 
 
-def _slstm_scan(wx: torch.Tensor, rg4: torch.Tensor) -> torch.Tensor:
-    """The steps over ``wx (..., S, 4, H, B, dh)``; returns the hidden
-    states ``(..., S, H, B, dh)`` (fp32)."""
+def _slstm_scan(wx: torch.Tensor, rg4: torch.Tensor, *carry):
+    """The steps over ``wx (..., S, 4, H, B, dh)`` from ``carry`` (zeros
+    and m at -1e30 when none is given); returns the hidden states
+    ``(..., S, H, B, dh)`` (fp32) and the last carry, flat: ``(hs, h, c,
+    n, m)``."""
     S = wx.shape[-5]
-    state = torch.zeros(wx.shape[:-5] + wx.shape[-3:], dtype=torch.float32,
-                        device=wx.device)
-    carry = (state, state, state, torch.full_like(state, -1e30))
+    if not carry:
+        state = torch.zeros(wx.shape[:-5] + wx.shape[-3:],
+                            dtype=torch.float32, device=wx.device)
+        carry = (state, state, state, torch.full_like(state, -1e30))
     hs = []
     for t in range(S):
         carry = _slstm_step(rg4, carry, wx.select(-5, t))
         hs.append(carry[0])
-    return torch.stack(hs, dim=-4)
+    return (torch.stack(hs, dim=-4),) + tuple(carry)
 
 
 def slstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """x ``(*lead, B, S, D)``; full sequence.  The gate pre-activations
-    ``W x + b`` for every step at once (fp32), then the steps in order
-    (`SLSTM_SPAN`; ``cfg.slstm_unroll`` changes nothing, as in JAX), the
-    gn RMSNorm and the GeGLU-style up / down projection."""
+                positions: torch.Tensor, *, cache=None,
+                pos: Optional[int] = None, want_cache: bool = False):
+    """x ``(*lead, B, S, D)``.  The gate pre-activations ``W x + b`` for
+    every step at once (fp32), then the steps in order (over a full
+    sequence inside `SLSTM_SPAN`; ``cfg.slstm_unroll`` changes nothing,
+    as in JAX; from a ``cache``, decode at S == 1, one `_slstm_step` on
+    its carry), the gn RMSNorm and the GeGLU-style up / down projection.
+    Returns the mixer output, or ``(out, cache)`` with ``want_cache`` or
+    a ``cache``: the carry ``{"h", "c", "n", "m"}``, each ``(B, H, dh)``
+    fp32; a given cache is written in place."""
     *lead, B, S, D = x.shape
     H = cfg.num_heads
     dh = D // H
@@ -466,11 +569,32 @@ def slstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     rg4 = p["r_gates"].to(torch.float32).permute(
         *range(nl), nl + 1, nl + 2, nl, nl + 3).reshape(
         tuple(lead) + (H, dh, 4 * dh))
-    hs = _spanned(SLSTM_SPAN, _slstm_scan, (wx, rg4))
+    names = ("h", "c", "n", "m")
+    if cache is None:
+        hs, *carry = _spanned(SLSTM_SPAN, _slstm_scan, (wx, rg4))
+    else:
+        # the cache's (B, H, dh) as the steps' (H, B, dh)
+        hs, *carry = _slstm_scan(wx, rg4, *(cache[k].transpose(-3, -2)
+                                            for k in names))
     # (*lead, S, H, B, dh) -> (*lead, B, S, D)
     h_seq = hs.permute(*range(nl), nl + 2, nl, nl + 1, nl + 3).reshape(
         tuple(lead) + (B, S, D))
     h_seq = L.rms_norm(h_seq.to(x.dtype), p["gn"])
     up = L.gelu_tanh(L.matmul(h_seq, p["w_up"])) * L.matmul(
         h_seq, p["w_up_gate"])
-    return L.matmul(up, p["w_down"])
+    out = L.matmul(up, p["w_down"])
+    if cache is None and not want_cache:
+        return out
+    return out, _store(cache, {k: v.transpose(-3, -2)
+                               for k, v in zip(names, carry)})
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device=None) -> Params:
+    """The zero carry, m at -1e30, each ``(batch, H, dh)`` fp32."""
+    H = cfg.num_heads
+    shape = (batch, H, cfg.d_model // H)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"h": torch.zeros(shape, **f32), "c": torch.zeros(shape, **f32),
+            "n": torch.zeros(shape, **f32),
+            "m": torch.full(shape, -1e30, **f32)}

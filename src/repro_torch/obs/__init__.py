@@ -9,8 +9,8 @@
   metrics buffer that holds the host sync back to the flush boundary;
 * `repro_torch.obs.probes` — the Sophia health scalars;
 * `repro_torch.obs.spans`  — host span timers (each span is also a
-  `torch.profiler.record_function` range) and `profile_trace`, a
-  `torch.profiler` capture of a run;
+  `torch.profiler.record_function` range), `annotate` (such a range
+  alone) and `profile_trace`, a `torch.profiler` capture of a run;
 * `repro_torch.obs.trace`  — Chrome Trace Event export and validator;
 * `repro_torch.obs.logio`  — tolerant record readers.
 """
@@ -22,7 +22,7 @@ from repro_torch.obs.schema import (SCHEMA_VERSION,
                                     ObsSchemaError, describe, fingerprint,
                                     validate_record)
 from repro_torch.obs.sinks import JsonlSink, RingSink, RunRecorder
-from repro_torch.obs.spans import SpanLog, profile_trace
+from repro_torch.obs.spans import SpanLog, annotate, profile_trace
 from repro_torch.obs.trace import chrome_trace, validate_chrome_trace
 
 __all__ = [
@@ -30,7 +30,7 @@ __all__ = [
     "describe", "fingerprint", "validate_record",
     "JsonlSink", "RingSink", "RunRecorder",
     "MetricsAccumulator", "PROBE_METRICS", "sophia_health",
-    "SpanLog", "profile_trace",
+    "SpanLog", "annotate", "profile_trace",
     "ObsLogError", "read_records",
     "chrome_trace", "validate_chrome_trace",
 ]

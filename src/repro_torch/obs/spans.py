@@ -1,5 +1,6 @@
-"""Host-side span timers and the profiler hook (the port of the JAX
-package's ``repro/obs/spans.py``: `SpanLog` and `profile_trace`).
+"""Host-side span timers and the profiler hooks (the port of the JAX
+package's ``repro/obs/spans.py``: `annotate`, `SpanLog` and
+`profile_trace`).
 
 `SpanLog` times named host-side phases (dispatch, apply, round) and
 keeps them as ``span`` records; a span opened by the virtual-time
@@ -19,6 +20,13 @@ import torch
 from repro_torch.obs.probes import PROBE_METRICS  # noqa: F401 (re-export)
 
 
+def annotate(name: str):
+    """A named range of the profiler timeline around a host-side region
+    (context manager; the JAX package's ``TraceAnnotation``): a
+    `torch.profiler.record_function`, near free outside a profile."""
+    return torch.profiler.record_function(name)
+
+
 class SpanLog:
     """Collects ``span`` records; wall-clock zero is construction."""
 
@@ -31,7 +39,7 @@ class SpanLog:
              trace_id: Optional[int] = None):
         start = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with annotate(name):
                 yield
         finally:
             rec = {"record": "span", "name": name,

@@ -252,7 +252,7 @@ def test_forward_loss_grads_sampled_loss_match_jax(arch, dtype):
 
 
 def model_vs_jax(jcfg, tcfg, jit=False, fp32_band=(RTOL, ATOL),
-                 bf16_band=(2 ** -6, 2 ** -5)):
+                 bf16_band=(2 ** -6, 2 ** -5), batch=None):
     """The forward, loss, grads and GNB sampled loss of the reduced
     configs against JAX's, from the same weights and batch, in the
     module's bands for ``tcfg.dtype``.  ``jit``: the JAX side as one
@@ -260,11 +260,12 @@ def model_vs_jax(jcfg, tcfg, jit=False, fp32_band=(RTOL, ATOL),
     seconds there), else op by op.  ``fp32_band``: ``(rtol, atol)`` of
     the fp32 logits (``atol`` times their largest magnitude above 1),
     loss and grads; ``bf16_band``: the bf16 logits' and grads' shares of
-    their largest magnitude."""
+    their largest magnitude.  ``batch``: the (JAX, port) batches, by
+    default `_batch`'s tokens."""
     rtol, atol = fp32_band
     logits_steps, grad_steps = bf16_band
     jp, tp = _params(jcfg)
-    jb, tb = _batch(jcfg.vocab_size)
+    jb, tb = batch or _batch(jcfg.vocab_size)
     jt, tt = JT.LMTask(jcfg), TT.LMTask(tcfg)
     fp32 = tcfg.dtype == "float32"
     key = jax.random.PRNGKey(9)
@@ -381,14 +382,25 @@ def test_token_batches():
                                   b["tokens"].numpy())
 
 
-@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
-                                  if a not in DENSE + MOE + RECURRENT])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", list(configs.ARCH_IDS) + ["unknown kind"])
+def test_every_arch_is_supported(arch):
+    """Every arch of the zoo passes `check_supported` and builds at its
+    reduced size; an unknown block kind is a `ValueError`."""
+    if arch == "unknown kind":
+        cfg = dataclasses.replace(
+            configs.get_model_config("minicpm-2b").reduced(d_model=128),
+            block_pattern=("attn", "conv"))
+        with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+            TT.LMTask(cfg)
+        with pytest.raises(ValueError, match="unknown block kind"):
+            TT.init_lm(torch.Generator().manual_seed(0), cfg)
+        return
     cfg = configs.get_model_config(arch).reduced(d_model=128)
-    with pytest.raises(NotImplementedError, match=r"queue 1 \(g\)"):
-        TT.LMTask(cfg)
-    with pytest.raises(NotImplementedError, match=r"queue 1 \(g\)"):
-        TT.init_lm(torch.Generator().manual_seed(0), cfg)
+    TT.check_supported(cfg)
+    params = TT.LMTask(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    assert params["embed"].shape == (cfg.vocab_padded, cfg.d_model)
+    assert params["embed"].dtype == TT.param_dtype(cfg)
+    assert ("lm_head" in params) == (not cfg.tie_embeddings)
 
 
 # ------------------------------------------------------- engine rounds
@@ -443,7 +455,10 @@ def rounds_vs_jitted_jax(arch, strategy, dtype, seq=ES, outliers=0,
     and GNB draws, held to the module's engine bands after each round
     (``outliers``: `_bf16_band`'s; ``replace``: config fields set in
     both packages, `_cfgs`; ``fp32_band(got, want, name, flip, msg)``
-    replaces the fp32 engine band, with `_bf16_band`'s arguments)."""
+    replaces the fp32 engine band, with `_bf16_band`'s arguments).  An
+    embedding-input arch trains on N(0, 1) ``embeds`` in its dtype, as
+    the JAX CLI builds them.  Returns the port's engine and last
+    state."""
     jcfg, tcfg = _cfgs(arch, dtype, **(replace or {}))
     kw = dict(num_clients=C, local_iters=J, tau=TAU, lr=1e-3,
               schedule="wsd", total_rounds=4, strategy=strategy)
@@ -457,9 +472,13 @@ def rounds_vs_jitted_jax(arch, strategy, dtype, seq=ES, outliers=0,
     jround = jax.jit(jeng.round)
     fp32 = dtype == "float32"
     for r in range(ROUNDS):
-        jb = jsyn.make_token_batch(jax.random.fold_in(key, 100 + r), C, EB,
-                                   seq, jcfg.vocab_size)
-        tb = {k: torch.tensor(np.asarray(v)) for k, v in jb.items()}
+        kb = jax.random.fold_in(key, 100 + r)
+        jb = jsyn.make_token_batch(kb, C, EB, seq, jcfg.vocab_size)
+        if jcfg.embedding_inputs:
+            jb = {"embeds": jax.random.normal(
+                jax.random.fold_in(kb, 1), (C, EB, seq, jcfg.d_model),
+                dtype=JT.param_dtype(jcfg)), "labels": jb["labels"]}
+        tb = convert.params_from_numpy(jax.tree.map(np.asarray, jb), "cpu")
         rng = jax.random.fold_in(key, 1000 + r)
         jstate, jm = jround(jstate, jb, rng)
         tstate, tm = teng.round(tstate, tb, gumbel=torch.from_numpy(
@@ -482,6 +501,7 @@ def rounds_vs_jitted_jax(arch, strategy, dtype, seq=ES, outliers=0,
             else:
                 _bf16_band(b, a, name, 2 * kw["lr"] * J * (r + 1) / C,
                            f"round {r} {name}", outliers)
+    return teng, tstate
 
 
 @pytest.mark.parametrize("strategy,dtype", [("parallel", "float32"),

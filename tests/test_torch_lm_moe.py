@@ -28,6 +28,10 @@ layers' flips of the same token follow from its first.  In the engine
 rounds the embedding rows of tokens whose choices flipped at the
 round's start are left out of the state comparison (a flipped token's
 whole gradient changes); every other coordinate is held to the band.
+The whole-model forward, loss, grads and GNB loss are compared with
+JAX's own choices injected into the port (`injected_routes`, through
+`layers.moe_route`'s ``expert_idx`` seam), after the free forwards'
+flips are counted: a near-tie flip then decides no comparison.
 At bf16 the choices also flip inside the round (from the second local
 step's params, a bf16 step apart, and GNB labels sampled at near-ties
 of the logits), and a flipped token moves the gradient of every token
@@ -123,6 +127,31 @@ def recorded_routes():
         yield jrec, trec
     finally:
         jax.lax.top_k, TL.top_k = jtop, ttop
+
+
+class injected_routes:
+    """While inside, the port's MoE layers route by ``choices`` (the JAX
+    package's ``expert_idx`` of one forward, a layer each), through
+    `layers.moe_route`'s seam: call ``i`` takes ``choices[i % len]``, so
+    each forward from the same params and batch (the loss, its grads,
+    the GNB loss) routes as JAX's did.  Reusable."""
+
+    def __init__(self, choices):
+        self.choices = [torch.from_numpy(np.asarray(c).astype(np.int64))
+                        for c in choices]
+
+    def __enter__(self):
+        route, calls = TL.moe_route, iter(range(10 ** 9))
+
+        def injected(cfg, probs, expert_idx=None):
+            idx = self.choices[next(calls) % len(self.choices)]
+            return route(cfg, probs, expert_idx=idx.reshape(
+                probs.shape[:-1] + idx.shape[-1:]))
+        self.route, TL.moe_route = route, injected
+        return self
+
+    def __exit__(self, *exc):
+        TL.moe_route = self.route
 
 
 def route_flips(jrec, trec, dtype, label):
@@ -284,6 +313,28 @@ def test_top_k_is_jax_top_k_with_ties():
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_route_seam_changes_no_bit(dtype):
+    """`layers.moe_route` given the top-k's own choices (the seam the
+    whole-model tests inject JAX's through) routes as without them: the
+    same indices and combine weights, and a forward through
+    `injected_routes` of the port's own choices is bitwise the free
+    one's."""
+    jcfg, tcfg = _cfgs(DEEPSEEK, dtype)
+    probs = torch.softmax(_t(np.random.RandomState(3).randn(
+        B, S, tcfg.moe.num_experts).astype(np.float32)), -1)
+    idx, comb = TL.moe_route(tcfg, probs)
+    idx2, comb2 = TL.moe_route(tcfg, probs, expert_idx=idx)
+    assert torch.equal(idx, idx2) and torch.equal(comb, comb2)
+    _, tp = _params(jcfg)
+    _, tb = _batch(jcfg.vocab_size)
+    with recorded_routes() as (_, trec):
+        free, _, aux = TT.forward(tp, tcfg, tb)
+    with injected_routes([i for _, i in trec]):
+        fixed, _, aux2 = TT.forward(tp, tcfg, tb)
+    assert torch.equal(free, fixed) and torch.equal(aux, aux2)
+
+
 def _moe_case(case, jcfg, dtype, seed=4):
     """MoE weights (JAX init, numpy) and an input ``x`` for ``case``:
     ``random``; ``overflow``, every token's first choice expert 0, past
@@ -390,9 +441,12 @@ def test_forward_loss_grads_sampled_loss_match_jax(arch, dtype):
     the routing of both forwards is compared (`route_flips`): the
     logits, the aux loss (summed over the layers), the loss with it,
     every grad leaf, the GNB inner loss with JAX's own categorical draw
-    injected.  At fp32 a grad leaf whose largest magnitude is above 1
-    (deepseek's embedding, 1.19) takes ``atol`` times it, as the logits
-    do."""
+    injected.  These port forwards route by JAX's own choices
+    (`injected_routes`, the seam of `layers.moe_route`), so that a
+    near-tie the packages break apart (the bf16 deepseek's layer 1, at
+    a margin of 0.000449 of top 0.388) cannot decide the comparison.  At
+    fp32 a grad leaf whose largest magnitude is above 1 (deepseek's
+    embedding, 1.19) takes ``atol`` times it, as the logits do."""
     jcfg, tcfg = _cfgs(arch, dtype)
     jp, tp = _params(jcfg)
     jb, tb = _batch(jcfg.vocab_size)
@@ -400,16 +454,20 @@ def test_forward_loss_grads_sampled_loss_match_jax(arch, dtype):
     fp32 = dtype == "float32"
     with recorded_routes() as (jrec, trec):
         jl, _, jaux = JT.forward(jp, jcfg, jb)
-        tl, _, taux = TT.forward(tp, tcfg, tb)
+        TT.forward(tp, tcfg, tb)
     assert len(trec) == tcfg.num_layers
     route_flips(jrec, trec, dtype, f"{arch} {dtype} forward")
+    routes = injected_routes([i for _, i in jrec])
+    with routes:
+        tl, _, taux = TT.forward(tp, tcfg, tb)
     assert tl.dtype == torch.float32 and tl.shape == jl.shape
     assert taux.shape == () and taux.dtype == torch.float32
     _close(taux, jaux, rtol=RTOL if fp32 else 1e-3)
     top = float(np.abs(np.asarray(jl)).max())
     _close(tl, jl, atol=(ATOL if fp32 else 2 ** -6) * max(1.0, top))
     jloss, jg = jax.value_and_grad(jt.loss)(jp, jb)
-    tloss, tg = _loss_grads(tt, tp, tb)
+    with routes:
+        tloss, tg = _loss_grads(tt, tp, tb)
     _close(tloss, jloss, rtol=RTOL if fp32 else 1e-3)
     jg = convert.flatten(jax.tree.map(np.asarray, jg))
     assert sorted(jg) == sorted(tg)
@@ -429,7 +487,8 @@ def test_forward_loss_grads_sampled_loss_match_jax(arch, dtype):
     want = jt.sampled_loss(jp, jb, key)
     if fp32:
         np.testing.assert_array_equal(ty, jy)
-        _close(tt.sampled_loss(tp, tb, torch.from_numpy(gum)), want)
+        with routes:
+            _close(tt.sampled_loss(tp, tb, torch.from_numpy(gum)), want)
     else:
         z = np.asarray(jl, np.float32) + gum
         gap = (np.take_along_axis(z, jy[..., None], -1)

@@ -123,14 +123,22 @@ def test_causal_conv1d_is_jax_bitwise(dtype):
     w = (rs.randn(4, 24) * 0.3).astype(np.float32)
     ju, jw = (jnp.asarray(a).astype(dtype) for a in (u, w))
     tu, tw = (_t(a).to(getattr(torch, dtype)) for a in (u, w))
-    want, _ = JR.causal_conv1d(ju, jw)
-    got = TR.causal_conv1d(tu, tw)
+    want, want_state = JR.causal_conv1d(ju, jw)
+    got, state = TR.causal_conv1d(tu, tw)
     assert got.dtype == tu.dtype
     _same(got, want)
+    _same(state, want_state)
+    # from a past (decode's conv state): the output and the new state
+    past = (rs.randn(2, 3, 24)).astype(np.float32)
+    jpast, tpast = jnp.asarray(past).astype(dtype), _t(past).to(tu.dtype)
+    want, want_state = JR.causal_conv1d(ju[:, :1], jw, jpast)
+    got, state = TR.causal_conv1d(tu[:, :1], tw, tpast)
+    _same(got, want)
+    _same(state, want_state)
     # with a client axis: each client's taps on its own sequence
-    lead = TR.causal_conv1d(torch.stack([tu, 2 * tu]),
-                            torch.stack([tw, tw.flip(0)]))
-    _same(lead[0], want)
+    lead, _ = TR.causal_conv1d(torch.stack([tu, 2 * tu]),
+                               torch.stack([tw, tw.flip(0)]))
+    _same(lead[0], JR.causal_conv1d(ju, jw)[0])
     _same(lead[1], JR.causal_conv1d(2 * ju, jw[::-1])[0])
 
 
@@ -321,7 +329,7 @@ def test_bf16_ffn_act_is_jax_bitwise(kind):
     """The GeLU FFN activations at bf16 are JAX's bit for bit:
     ``jax.nn.gelu(approximate=True)`` rounds every op, as
     `layers.gelu_tanh` does (``F.gelu`` rounds once: about 40% of these
-    values a step off).  swiglu keeps ``F.silu`` (ROADMAP queue 3)."""
+    values a step off); swiglu's in tests/test_torch_lm_vlm.py."""
     rs = np.random.RandomState(10)
     g = (rs.randn(4096) * 3).astype(np.float32)
     u = rs.randn(4096).astype(np.float32)

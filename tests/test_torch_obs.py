@@ -29,8 +29,7 @@ def test_schema_and_fingerprint_equal_jax():
     assert tobs.describe() == jobs.describe()
     assert tobs.SCHEMA_VERSION == jobs.SCHEMA_VERSION
     assert tobs.SUPPORTED_SCHEMA_VERSIONS == jobs.SUPPORTED_SCHEMA_VERSIONS
-    assert sorted(tobs.__all__) == sorted(
-        n for n in jobs.__all__ if n != "annotate")
+    assert sorted(tobs.__all__) == sorted(jobs.__all__)
 
 
 @pytest.mark.parametrize("rec", [
