@@ -79,6 +79,16 @@ embeddings, and gemma2-9b x 42 layers, batch 2, prompt 4352 (past its
 the decode logits against the full forward's, prefill seconds, decode
 p50 / p95 ms, tokens/s, a profiled decode step; no kernel of the table
 runs there).
+Slice 15 holds the cost tools to the card (`dry_check`): one round of
+`lm_train`, `lm_seq`, `lm_moe`, `lm_rec` and `lm_vlm` traced shape-only
+(`repro_torch.launch.dryrun.trace`, every kernel entry on its shape-only
+path) must launch exactly what the phase counted and peak within 10% of
+what it measured (printed beside the reckoning, with the roofline time
+over the profiled round's device time); the five full-size dry runs of
+the JAX package's small dry-run test end ``ok``; and it runs the three
+example twins (`examples_check`: fed_llm_train at its defaults,
+comm_compression, serve_batched for chatglm3-6b and xlstm-1.3b), each
+run's launches equal to a trace of the same rounds.
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
@@ -90,6 +100,7 @@ line.  The second-to-last line of standard output is the ``{"kernels":
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -118,6 +129,7 @@ from repro_torch.core.gnb import gnb_estimate  # noqa: E402
 from repro_torch.data import partition as tpart  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as tq  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -154,18 +166,10 @@ FP32_FLOPS = 67e12
 #: the kernels are built with -fmad=false, so each operation they count
 #: is one instruction at half that rate
 FP32_OPS_PER_S = FP32_FLOPS / 2
-#: fp32 operations per coordinate of the Sophia update (m: 3, h EMA: 3,
-#: h select: 3, decay: 2, max: 1, divide: 1, clip: 2, step: 2)
-SOPHIA_OPS = 17
-#: fp32 operations per coordinate of the quantize round-trips (quant:
-#: divide, add, floor, 2 compares, multiply; uplink adds the delta's
-#: subtract and add and the residual's subtract; broadcast also the
-#: replica's add)
-QUANT_OPS = {"quant": 6, "uplink": 9, "broadcast": 10}
-#: fp32 operations per coordinate of the biased compressors' kernels
-#: (sign: two compares, copysign, multiply; threshold: abs, compare,
-#: select)
-BIASED_OPS = {"sign": 4, "topk": 3}
+#: fp32 operations per coordinate of each kernel (`kernels/cost.py`)
+SOPHIA_OPS, QUANT_OPS, BIASED_OPS = (kcost.SOPHIA_OPS, kcost.QUANT_OPS,
+                                     kcost.BIASED_OPS)
+stale_ops, robust_ops = kcost.stale_ops, kcost.robust_ops
 #: the state dtypes the kernels load and store
 STORES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
           torch.float8_e5m2)
@@ -190,39 +194,6 @@ CLIP_NORM = 0.5
 SCHED_EVENTS = {"sync": 2, "semisync": 6, "chunk8": 3, "async": 24,
                 "normclip": 3}
 ROBUST_ROUNDS = 2
-
-
-def stale_ops(K: int) -> int:
-    """fp32 operations per output coordinate of the stale accumulate: a
-    multiply and an add per arrival, the final scale."""
-    return 2 * K + 1
-
-
-def bitonic_pairs(n: int) -> int:
-    """Compare-exchanges of the bitonic sorting network over n = 2^p."""
-    p = n.bit_length() - 1
-    return n // 2 * p * (p + 1) // 2
-
-
-def robust_ops(K: int, trim: int, sort_share: float) -> float:
-    """fp32 operations per output coordinate of the robust combine, on
-    average over coordinates of which ``sort_share`` take its sort form:
-    the scale multiply per arrival, the survivor-weight select, the
-    multiply and the two adds of the sums per arrival, the divide; with
-    trim > 0 also the magnitude test per arrival (abs, compare) and then
-    either the sort form's selection (a min and a max per
-    compare-exchange of the bucket's network, the four compares against
-    its bounds per arrival) or the pass form's (a select and a compare
-    per arrival in each of the 2*trim passes).  The register buckets
-    only (K <= 64)."""
-    ops = K + 4 * K + 1
-    if trim == 0:
-        return ops
-    bucket = 16 if K <= 16 else 32 if K <= 32 else 64
-    sort_ops = 2 * bitonic_pairs(bucket) + 4 * K
-    pass_ops = 2 * trim * K * 2
-    return (ops + 2 * K + sort_share * sort_ops
-            + (1.0 - sort_share) * pass_ops)
 
 
 TIMED_LAUNCHES = 200
@@ -2414,8 +2385,7 @@ def bound(ins, outs_like, ops_per_coord):
     fp32 operations over the rate of fp32 instructions that are not
     FMAs.  Each input read once, each output written once (a shared
     operand counts once)."""
-    nbytes = sum(x.numel() * x.element_size() for x in ins)
-    nbytes += sum(x.numel() * x.element_size() for x in outs_like)
+    nbytes = kcost.launch_bytes(ins, outs_like)
     ops = ops_per_coord * outs_like[0].numel()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -2997,6 +2967,10 @@ LM_PHASES = {
 #: first run's round 0: the model learnt those batches.  Over the first
 #: run's rounds, new batches each, the loss need not fall at lr 1e-3
 LM_RELEARN = ("lm_moe", "lm_rec", "lm_xlstm")
+#: what each LM phase measured, for `dry_check`: the CLI's argv, the
+#: first run's launch counts and peak, the reckoned peak and the profiled
+#: round's device time (us)
+LM_MEASURED: dict = {}
 #: the profiler ranges of a profiled LM round whose device time is read,
 #: each with the block kind that runs it (None: the MoE FFN): the MoE's
 #: dispatch / combine einsums and each recurrent mixer's scan (forward
@@ -3125,9 +3099,10 @@ def lm_phase(label, device):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        res = train.main(lm_argv(arch, layers, clients, tmp / "ckpt",
-                                 LM_ROUNDS, *flags, "--obs-log", str(log),
-                                 "--obs-flush-every", "1"))
+        argv = lm_argv(arch, layers, clients, tmp / "ckpt", LM_ROUNDS,
+                       *flags, "--obs-log", str(log), "--obs-flush-every",
+                       "1")
+        res = train.main(argv)
         got = launch_counts()
         want = want_of(LM_ROUNDS)
         print(f"{label}: launches {got}")
@@ -3222,6 +3197,8 @@ def lm_phase(label, device):
                                  generator=gen(device, SEED + 8)), steady,
             top=16, spans=tuple(LM_SPANS))
         busy = sum(t for t, _ in by_name.values())
+        LM_MEASURED[label] = dict(argv=argv, launches=got, peak=peak,
+                                  reckoned=reckoned, device_us=busy)
         for span, (what, kind) in LM_SPANS.items():
             if not (cfg.moe is not None if kind is None
                     else kind in cfg.block_pattern):
@@ -3479,8 +3456,24 @@ def route_flips(label, ref, got, exact):
     return count
 
 
+@contextlib.contextmanager
+def one_cpu_thread():
+    """torch's CPU ops on one thread inside: a CPU reference whose sums
+    run in one order, the same in every run.  On the thread pool they do
+    not: the xlstm small case's CPU state differed from run to run on
+    the card's machine, and its round-1 h lay 0.32-1.57 bands from the
+    card's, whose own state repeated (ROADMAP queue 3)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def lm_small_case(device, label):
-    """One `LM_SMALL_CASES` run, card against CPU: the same weights,
+    """One `LM_SMALL_CASES` run, card against CPU (the CPU's rounds on one
+    thread, `one_cpu_thread`): the same weights,
     batches, GNB noise and comm draws; losses within rtol 1e-4 / atol
     1e-5, every resident buffer within that band but for at most
     `SMALL_MAX_FLIPS` coordinates a buffer, each within one move of its
@@ -3534,7 +3527,9 @@ def lm_small_case(device, label):
         for key, engine in engines.items():
             dev = engine.device
             reset_launches()
-            with ScaleProbe(fed.comm) as probe, RouteRecorder() as rec:
+            with ScaleProbe(fed.comm) as probe, RouteRecorder() as rec, (
+                    one_cpu_thread() if key == "cpu"
+                    else contextlib.nullcontext()):
                 states[key], m = engine.round(
                     states[key], {k: v.to(dev) for k, v in b.items()},
                     gumbel=g.to(dev), comm_noise=cnoise)
@@ -3964,6 +3959,174 @@ def time_lm_kernels(device):
     return out
 
 
+# ------------------------------------------------ cost tools (slice 15)
+#: the LM phases whose round `dry_check` traces and holds to what the
+#: card measured
+DRY_PHASES = ("lm_train", "lm_seq", "lm_moe", "lm_rec", "lm_vlm")
+#: the traced peak within this share of the measured peak, either way
+DRY_PEAK_BAND = 0.10
+#: the full-size dry runs (tests/test_dryrun_small.py's five combos, at
+#: the published widths), two local iterations: (arch, shape, model
+#: config overrides).  qwen3-moe-235b-a22b's round traces in 1,063 s of
+#: host time at its 94 layers (8 sequential clients, about 11 s a layer
+#: on one CPU core), past the phase's 240 s: its depth is cut to 4
+DRY_COMBOS = (("minicpm-2b", "train_4k", None),
+              ("qwen3-moe-235b-a22b", "train_4k", {"num_layers": 4}),
+              ("gemma2-9b", "prefill_32k", None),
+              ("deepseek-v2-lite-16b", "decode_32k", None),
+              ("xlstm-1.3b", "long_500k", None))
+DRY_LOCAL_ITERS = 2
+#: the serving example's archs on the card
+SERVE_EXAMPLE_ARCHS = ("chatglm3-6b", "xlstm-1.3b")
+
+
+def dry_check(device):
+    """Slice 15's cost tools on the card.  (a) Each phase of
+    `DRY_PHASES`: one round of the same CLI run traced shape-only
+    (`repro_torch.launch.api.build_train_cli`, `dryrun.trace`); its
+    launches of each kernel, times the run's rounds, must equal the
+    counted launches, and its peak must lie within `DRY_PEAK_BAND` of
+    ``torch.cuda.max_memory_allocated``; printed beside the reckoned
+    peak, with the roofline time (each op's larger term at the card's
+    peaks, summed) over the profiled round's device time.  (b) The
+    full-size dry runs of `DRY_COMBOS` end ``ok``, one line each, with
+    ``fits`` against the card's memory."""
+    from repro_torch.launch import api, dryrun
+    card = card_info()
+    cap = torch.cuda.get_device_properties(0).total_memory
+    print(f"dry_check: the card's total_memory {cap} bytes; {card}")
+    for label in DRY_PHASES:
+        m = LM_MEASURED[label]
+        t0 = time.perf_counter()
+        s = dryrun.trace(api.build_train_cli(m["argv"])).summary()
+        trace_s = time.perf_counter() - t0
+        traced = {k: v * LM_ROUNDS for k, v in s["launches"].items()}
+        print(f"dry_check {label}: traced in {trace_s} s; launches of "
+              f"{LM_ROUNDS} rounds traced {traced}, counted "
+              f"{m['launches']}")
+        if traced != m["launches"]:
+            raise SystemExit(f"dry_check {label}: traced launches {traced}, "
+                             f"counted {m['launches']}")
+        share = s["peak_bytes"] / m["peak"]
+        print(f"dry_check {label}: peak traced {s['peak_bytes']} bytes, "
+              f"measured {m['peak']} ({share} of it), reckoned "
+              f"{m['reckoned']} (reckon_*_peak); roofline {s['roofline_s']} "
+              f"s over the profiled round's device time "
+              f"{m['device_us'] / 1e6} s: "
+              f"{s['roofline_s'] / (m['device_us'] / 1e6)}; traced flops "
+              f"{s['flops_by_dtype']}, bytes {s['bytes']}; {card}")
+        if abs(share - 1.0) > DRY_PEAK_BAND:
+            raise SystemExit(f"dry_check {label}: traced peak "
+                             f"{s['peak_bytes']} is {share} of the measured "
+                             f"{m['peak']}")
+    t_all = time.perf_counter()
+    for arch, shape, over in DRY_COMBOS:
+        rec = dryrun.run_one(arch, shape, local_iters=DRY_LOCAL_ITERS,
+                             out_dir="", cfg_overrides=over)
+        print(f"dry_check {dryrun.line_of(rec)} overrides {over}; peak_bytes "
+              f"{rec.get('peak_bytes')} of {cap}; roofline "
+              f"{rec.get('roofline')}; roofline_s {rec.get('roofline_s')}; "
+              f"launches {rec.get('launches')}")
+        if rec["status"] != "ok":
+            raise SystemExit(f"dry_check: {arch} x {shape}: "
+                             f"{rec.get('error')}\n{rec.get('traceback')}")
+    print(f"dry_check: full-size dry runs {time.perf_counter() - t_all} s")
+
+
+def traced_launches(bundle) -> dict:
+    """Each kernel's launches in a shape-only trace of ``bundle``."""
+    from repro_torch.launch import dryrun
+    return dryrun.trace(bundle).summary()["launches"]
+
+
+def examples_check(device):
+    """The three example twins on the card: ``fed_llm_train`` at its
+    defaults (the ~100M LM, 100 rounds) and ``comm_compression`` (four
+    regimes of 12 rounds), each run's launches of every kernel of the
+    table against a shape-only trace of the same rounds; ``serve_batched``
+    for `SERVE_EXAMPLE_ARCHS`, which launches none.  Returns the launch
+    counts summed over the runs."""
+    import tempfile
+    from repro_torch.examples import comm_compression, fed_llm_train
+    from repro_torch.examples import serve_batched
+    from repro_torch.launch import api
+    card = card_info()
+    launches = {name: 0 for name in REPLACES}
+
+    def check(label, got, want):
+        print(f"examples_check {label}: launches {got}, want {want}")
+        if got != want:
+            raise SystemExit(f"examples_check {label}: launches {got}, "
+                             f"want {want}")
+        for k, v in got.items():
+            launches[k] += v
+
+    with tempfile.TemporaryDirectory(prefix="fed_llm_") as tmp:
+        argv = ["--ckpt", str(Path(tmp) / "ckpt")]
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fed_llm_train.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+    args = fed_llm_train.parse(argv)
+    engine = fed_llm_train.build_engine(args, api.TRACE_DEVICE)
+    per_round = traced_launches(api.round_bundle(
+        engine, (args.clients, args.batch), args.seq, False, {}))
+    check("fed_llm_train", got,
+          {k: v * args.rounds for k, v in per_round.items()})
+    losses = res["losses"]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"examples_check fed_llm_train: losses {losses}")
+    print(f"examples_check fed_llm_train: {args.rounds} rounds in {wall} s "
+          f"(host clock after a synchronise), loss {losses[0]} -> "
+          f"{losses[-1]}; {card}")
+    del res
+
+    reset_launches()
+    res = comm_compression.main([])
+    got = launch_counts()
+    want = {name: 0 for name in REPLACES}
+    batch = comm_compression.make_batches(
+        "cpu", comm_compression.make_data("cpu"), 0)
+    shapes = {k: (v.shape, v.dtype) for k, v in batch.items()}
+    for name, comm in comm_compression.REGIMES.items():
+        engine = FedEngine(MLPTask(hidden=comm_compression.HIDDEN),
+                           comm_compression.fed_config(comm), device="cpu")
+
+        def make_args(engine=engine):
+            gen = torch.Generator().manual_seed(0)
+            batches = {k: torch.empty(s, dtype=d)
+                       for k, (s, d) in shapes.items()}
+            return engine.init(gen), batches, gen
+        per_round = traced_launches(api.Bundle(
+            lambda st, b, g, engine=engine: engine.round(st, b, generator=g),
+            make_args, {}))
+        for k, v in per_round.items():
+            want[k] += v * comm_compression.ROUNDS
+        r = res[name]
+        if not all(np.isfinite(r["losses"])):
+            raise SystemExit(f"examples_check {name}: losses {r['losses']}")
+        print(f"examples_check comm_compression {name}: "
+              f"{r['wire']['total_bytes']} bytes a round, loss "
+              f"{r['losses'][0]} -> {r['losses'][-1]}, test accuracy "
+              f"{r['accuracy']}")
+    check("comm_compression", got, want)
+    del res
+
+    for arch in SERVE_EXAMPLE_ARCHS:
+        reset_launches()
+        res = serve_batched.main(["--arch", arch])
+        check(f"serve_batched {arch}", launch_counts(),
+              {name: 0 for name in REPLACES})
+        if not all(torch.isfinite(lg).all() for lg in res["logits"]):
+            raise SystemExit(f"examples_check serve_batched {arch}: "
+                             "logits not finite")
+        print(f"examples_check serve_batched {arch}: tokens "
+              f"{tuple(res['tokens'].shape)}; {card}")
+    return launches
+
+
 def profile_round(engine, state, data, device, steady_s):
     """One more steady round of the main path under `torch.profiler`:
     device time by kernel, and the device's busy share of the
@@ -4123,7 +4286,8 @@ def main() -> None:
                    "lm_enc": lm_enc(device), "lm_vlm": lm_vlm(device),
                    "serve_small_check": serve_small_check(device),
                    "lm_serve": lm_serve(device)}
-    for path_launches in lm_launches.values():
+    dry_check(device)
+    for path_launches in (*lm_launches.values(), examples_check(device)):
         for k, v in path_launches.items():
             launches[k] += v
     timing = time_kernels(device)

@@ -1,6 +1,7 @@
 """Config dataclasses: the port's own copy of the model-zoo configs
 (`ModelConfig`, `MoEConfig`, `MLAConfig`) and of `FedConfig` with its
 nested `CommConfig`, `SchedConfig`, `RobustConfig` and `ObsConfig`,
+and the cost tools' `ShapeConfig`, `INPUT_SHAPES` and `RunConfig`,
 with the field names and defaults of the JAX package's
 ``configs/base.py``.  `repro_torch.core.fed.FedEngine` runs every
 setting the JAX engine runs and raises `ValueError` for unknown ones;
@@ -342,3 +343,27 @@ class FedConfig:
     sched: SchedConfig = field(default_factory=SchedConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     robust: RobustConfig = field(default_factory=RobustConfig)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the cost tools (`repro_torch.launch.api`)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    fed: FedConfig = field(default_factory=FedConfig)
+    seed: int = 0

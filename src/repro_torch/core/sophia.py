@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.cost import shape_only
 from repro_torch.kernels.ref import store_as
 from repro_torch.kernels.sophia_update import (sophia_update_batched,
                                                sophia_update_flat)
@@ -66,8 +67,11 @@ def sophia_step(params, grads, state: SophiaState, h_hat, do_h_update, *,
     dicts.  ``h_hat``: the GNB estimate (read only when
     ``do_h_update``, a host bool).  The device decides the route: CUDA
     trees run the fused kernel once over the trees' leaves, CPU trees the
-    per-leaf tensor arithmetic.  Returns ``(params, SophiaState)``."""
-    if tree_leaves(params)[0].device.type == "cuda":
+    per-leaf tensor arithmetic; storage-less trees (a cost trace) take
+    the kernel's shape-only path, as on the card.  Returns ``(params,
+    SophiaState)``."""
+    leaf = tree_leaves(params)[0]
+    if leaf.device.type == "cuda" or shape_only(leaf):
         from repro_torch.kernels.ops import sophia_fused_step
         params, m, h = sophia_fused_step(
             params, state.m, state.h, grads, h_hat, do_h_update, lr=lr,

@@ -3,8 +3,9 @@ of the JAX package's ``kernels/``.
 
 Beside each kernel sits its plain PyTorch version (`ref`): a wrapper
 runs the plain version for CPU tensors only, and launches the kernel —
-or raises — for CUDA tensors.  Sources live in ``csrc/`` and are built
-at first use (`build`).
+or raises — for CUDA tensors; a tensor without storage takes the
+shape-only path of a cost trace (`cost`).  Sources live in ``csrc/`` and
+are built at first use (`build`).
 
 ``KERNELS`` is the JAX package's registry of the eight kernel families,
 each with whether the port has it (all eight since the scheduler's and

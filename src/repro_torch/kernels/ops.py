@@ -12,7 +12,8 @@ plain version, as the JAX package computes it: every tree packed into
 one ``(R, 1024)`` buffer (sorted-key order, `repro_torch.comm.flat`),
 `ref.sophia_update_ref`, the results unpacked.  Either way the results
 are in the params leaves' dtypes (the JAX package unpacks all three with
-the params' layout).  ``LAUNCHES`` counts kernel launches.
+the params' layout).  Storage-less trees take the shape-only path
+(`cost`).  ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch.comm.flat import flat_spec, pack, unpack
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.ref import sophia_update_ref
 
@@ -161,6 +162,25 @@ def _launch(trees, do_h, lr, hp):
     return tuple({k: outs[k][j] for k in keys} for j in range(3))
 
 
+def _shape_only(trees):
+    """The shape-only launches (`cost`) of a step over storage-less
+    trees: the real route's launches, one per `MAX_LEAVES` leaves of
+    coordinates, each recorded with its leaves' bytes."""
+    params = trees[0]
+    keys = sorted(params)
+    outs = {k: tuple(torch.empty_like(params[k]) for _ in range(3))
+            for k in keys}
+    live = [k for k in keys if params[k].numel() > 0]
+    for s in range(0, len(live), MAX_LEAVES):
+        part = live[s:s + MAX_LEAVES]
+        cost.shape_only_launch(
+            "sophia_fused_step",
+            [tree[k] for tree in trees for k in part],
+            [o for k in part for o in outs[k]],
+            cost.SOPHIA_OPS * sum(params[k].numel() for k in part))
+    return tuple({k: outs[k][j] for k in keys} for j in range(3))
+
+
 def sophia_fused_step(params, m, h, grads, h_hat, do_h, *, lr, beta1,
                       beta2, rho, eps, weight_decay):
     """Fused m-EMA + gated h-EMA + decay + clip + update over parameter
@@ -171,7 +191,10 @@ def sophia_fused_step(params, m, h, grads, h_hat, do_h, *, lr, beta1,
     trees = (params, m, h, grads, h_hat)
     hp = dict(beta1=beta1, beta2=beta2, rho=rho, eps=eps,
               weight_decay=weight_decay)
-    if _validate(trees) == "cuda":
+    kind = _validate(trees)
+    if cost.shape_only(next(iter(params.values()))):
+        return _shape_only(trees)
+    if kind == "cuda":
         return _launch(trees, do_h, lr, hp)
     spec = flat_spec(params, cols=BLOCK_C)
     outs = sophia_update_ref(*(pack(t, spec) for t in trees), float(do_h),

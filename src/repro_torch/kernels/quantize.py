@@ -20,7 +20,8 @@ entries theirs where `uplink_takes_f32x4` allows, the broadcast entries
 theirs where `broadcast_takes_f32x4` allows, the sign and threshold
 entries theirs where `biased_takes_f32x4` allows, else the runtime-dtype
 form.  For CPU tensors it runs the plain version from `ref`; that is the
-only case in which the plain version runs.  ``LAUNCHES`` counts kernel
+only case in which the plain version runs.  A tensor without storage
+takes the shape-only path (`cost`).  ``LAUNCHES`` counts kernel
 launches per entry point, ``F32X4_LAUNCHES`` those of them that took the
 fp32 form (CPU calls count nothing).
 """
@@ -31,7 +32,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.ref import (broadcast_roundtrip_ref,
                                      quant_roundtrip_ref,
@@ -228,6 +229,10 @@ def _blocks(n: int, threads: int) -> int:
 
 def _quant(name, ndim, x, noise, scale, qmax):
     kind = _validate(name, ndim, [("x", x)], noise, scale)
+    if cost.shape_only(x):
+        return cost.shape_only_launch(
+            name, (x, noise, scale), (torch.empty_like(x),),
+            cost.QUANT_OPS["quant"] * x.numel())[0]
     if kind == "cpu":
         return quant_roundtrip_ref(x, noise, scale, qmax=qmax)
     out = torch.empty_like(x)
@@ -257,10 +262,17 @@ def _fused(name, launcher, ref_fn, ndim, theta, other, ef, noise, scale,
         lead, lead_label, shared = other, "ref", theta
     kind = _validate(name, ndim, [(lead_label, lead), ("ef", ef)], noise,
                      scale, shared=(shared_label, shared))
-    if kind == "cpu":
+    ins = (theta, other, ef, noise, scale)
+    shape_only = cost.shape_only(theta)
+    if kind == "cpu" and not shape_only:
         return ref_fn(theta, other, ef, noise, scale, qmax=qmax)
     outs = (torch.empty(lead.shape, dtype=theta.dtype, device=lead.device),
             torch.empty(lead.shape, dtype=theta.dtype, device=lead.device))
+    if shape_only:
+        ops = cost.QUANT_OPS["uplink" if shared_label == "start"
+                             else "broadcast"]
+        return cost.shape_only_launch(name, ins, outs,
+                                      ops * lead.numel())
     rows, cols, blocks, stream = _geometry(lead)
     shared_rows = shared.numel() // cols
     takes, threads = ((uplink_takes_f32x4, UPLINK_F32X4_THREADS)
@@ -360,6 +372,11 @@ def _per_client(name, launcher, ref_fn, ndim, x, v, label):
     if x.device != v.device:
         raise ValueError(f"{name}: inputs on several devices, {x.device} "
                          f"and {v.device}")
+    if cost.shape_only(x):
+        ops = cost.BIASED_OPS["sign" if name.startswith("sign") else "topk"]
+        return cost.shape_only_launch(name, (x, v),
+                                      (torch.empty_like(x),),
+                                      ops * x.numel())[0]
     if x.device.type == "cpu":
         return ref_fn(x, v)
     if x.device.type != "cuda":

@@ -5,7 +5,8 @@ port of the JAX package's Pallas ``kernels/robust_agg.py``).
 For CUDA tensors `robust_agg_flat` validates its inputs and launches the
 kernel on PyTorch's current stream, or raises.  For CPU tensors it runs
 the plain version `ref.robust_agg_ref`; that is the only case in which
-the plain version runs.  ``LAUNCHES`` counts kernel launches (CPU calls
+the plain version runs.  A tensor without storage takes the shape-only
+path (`cost`).  ``LAUNCHES`` counts kernel launches (CPU calls
 count nothing).
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.ref import robust_agg_ref
 from repro_torch.kernels.stale_accum import check_wires, vector_of
@@ -65,6 +66,13 @@ def robust_agg_flat(wires, weights, scales, *, trim: int,
                          f"0 <= 2*trim < K={K}")
     w = vector_of(weights, wires.device, name, "weights", K)
     s = vector_of(scales, wires.device, name, "scales", K)
+    if cost.shape_only(wires):
+        # the sort form's operations: the trace has no values to choose by
+        out = torch.empty(wires.shape[1:], dtype=torch.float32,
+                          device=wires.device)
+        return cost.shape_only_launch(
+            name, (wires, w, s), (out,),
+            cost.robust_ops(K, trim, 1.0) * out.numel())[0]
     if wires.device.type == "cpu":
         return robust_agg_ref(wires, w, s, trim=trim, normalize=normalize)
     lib = _lib()

@@ -7,7 +7,8 @@ kernel on PyTorch's current stream, or raises: its fp32 form when all
 five operands are fp32 and all eight pointers 16-byte aligned
 (`takes_f32x4`), else its runtime-dtype form.  For CPU tensors it runs
 the plain version `ref.sophia_update_ref`; that is the only case in
-which the plain version runs.  ``LAUNCHES`` counts kernel launches per
+which the plain version runs.  A tensor without storage takes the
+shape-only path (`cost`).  ``LAUNCHES`` counts kernel launches per
 entry point, ``F32X4_LAUNCHES`` those of them that took the fp32 form
 (CPU calls count nothing).
 """
@@ -18,7 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.ref import sophia_update_ref
 
@@ -134,6 +135,11 @@ def _launch(name, theta, m, h, g, h_hat, do_h, lr, hp, inplace):
 
 def _update(name, ndim, theta, m, h, g, h_hat, do_h, lr, hp, inplace):
     kind = _validate(name, ndim, (theta, m, h, g, h_hat))
+    if cost.shape_only(theta):
+        outs = ((theta, m, h) if inplace else
+                tuple(torch.empty_like(x) for x in (theta, m, h)))
+        return cost.shape_only_launch(name, (theta, m, h, g, h_hat),
+                                      outs, cost.SOPHIA_OPS * theta.numel())
     if kind == "cuda":
         return _launch(name, theta, m, h, g, h_hat, do_h, lr, hp, inplace)
     outs = sophia_update_ref(theta, m, h, g, h_hat, float(do_h),

@@ -6,7 +6,8 @@ For CUDA tensors `stale_accum_flat` validates its inputs and launches
 the kernel on PyTorch's current stream, or raises: its fp32 form where
 `takes_f32x4` allows, else its one-coordinate form.  For CPU tensors it
 runs the plain version `ref.stale_accum_ref`; that is the only case in
-which the plain version runs.  ``LAUNCHES`` counts kernel launches (CPU
+which the plain version runs.  A tensor without storage takes the
+shape-only path (`cost`).  ``LAUNCHES`` counts kernel launches (CPU
 calls count nothing).
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.build import DTYPE_CODES
 from repro_torch.kernels.ref import stale_accum_ref
 
@@ -112,6 +113,11 @@ def stale_accum_flat(wires, weights, inv_norm):
             raise ValueError(f"{name}: inv_norm on {inv_norm.device}, "
                              f"wires on {wires.device}")
         s_ptr = inv_norm
+    if cost.shape_only(wires):
+        out = torch.empty(wires.shape[1:], dtype=torch.float32,
+                          device=wires.device)
+        return cost.shape_only_launch(name, (wires, w), (out,),
+                                      cost.stale_ops(K) * out.numel())[0]
     if wires.device.type == "cpu":
         return stale_accum_ref(wires, w, inv_norm)
     out = torch.empty(wires.shape[1:], dtype=torch.float32,

@@ -254,17 +254,9 @@ def comm_config(args) -> CommConfig:
                       use_pallas=args.comm_pallas)
 
 
-def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
-         ) -> Dict[str, Any]:
-    """Run the CLI on ``argv`` (``sys.argv[1:]`` when None).  Returns
-    the engine, the final state, the per-round (or per-event) losses
-    and host seconds, and the records the run emitted (with
-    ``--obs-log``)."""
-    args = build_parser().parse_args(argv)
-    hooks = hooks or {}
-    dev = resolve_device(args.device)
-
-    cfg = model_config(args)
+def fed_config(args) -> FedConfig:
+    """The `FedConfig` of the parsed ``args``, with the arch file's
+    ``FED`` strategy and schedule."""
     over = configs.get_fed_overrides(args.arch)
     comm = comm_config(args)
     sched = SchedConfig(discipline=args.schedule,
@@ -283,14 +275,29 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
                           dropout_prob=args.dropout_prob,
                           rejoin_delay_s=args.rejoin_delay_s,
                           seed=args.seed)
-    fed = FedConfig(num_clients=args.clients, local_iters=args.local_iters,
-                    optimizer=args.optimizer, lr=args.lr, tau=args.tau,
-                    total_rounds=args.rounds, use_pallas=args.use_pallas,
-                    strategy=over.get("strategy", "parallel"),
-                    schedule=over.get("schedule", "const"), comm=comm,
-                    sched=sched, robust=robust,
-                    obs=ObsConfig(probes=args.probes, trace=args.trace,
-                                  flush_every=args.obs_flush_every))
+    return FedConfig(num_clients=args.clients, local_iters=args.local_iters,
+                     optimizer=args.optimizer, lr=args.lr, tau=args.tau,
+                     total_rounds=args.rounds, use_pallas=args.use_pallas,
+                     strategy=over.get("strategy", "parallel"),
+                     schedule=over.get("schedule", "const"), comm=comm,
+                     sched=sched, robust=robust,
+                     obs=ObsConfig(probes=args.probes, trace=args.trace,
+                                   flush_every=args.obs_flush_every))
+
+
+def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
+         ) -> Dict[str, Any]:
+    """Run the CLI on ``argv`` (``sys.argv[1:]`` when None).  Returns
+    the engine, the final state, the per-round (or per-event) losses
+    and host seconds, and the records the run emitted (with
+    ``--obs-log``)."""
+    args = build_parser().parse_args(argv)
+    hooks = hooks or {}
+    dev = resolve_device(args.device)
+
+    cfg = model_config(args)
+    fed = fed_config(args)
+    comm, robust = fed.comm, fed.robust
     task = T.LMTask(cfg)
     engine = FedEngine(task, fed, device=dev)
     if "params" in hooks:

@@ -159,7 +159,14 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.obs.schema", "repro_torch.obs.sinks",
                  "repro_torch.obs.logio", "repro_torch.obs.trace",
                  "repro_torch.obs.buffer", "repro_torch.checkpoint.ckpt",
-                 "repro_torch.launch.train", "repro_torch.configs.minicpm_2b"):
+                 "repro_torch.launch.train", "repro_torch.configs.minicpm_2b",
+                 # slice 15: the cost tools and the example twins
+                 "repro_torch.kernels.cost", "repro_torch.launch.api",
+                 "repro_torch.launch.op_cost", "repro_torch.launch.roofline",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.profile",
+                 "repro_torch.examples.fed_llm_train",
+                 "repro_torch.examples.comm_compression",
+                 "repro_torch.examples.serve_batched"):
         assert name in mods, name
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
