@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Two checkouts of this repository against each other on one card, in
 turns there and back (A, B, B, A): each kernel entry's host milliseconds
-per call, the steady seconds per round of the MLP main path and of the
-LM trainer's round, and repeats of one reduced LM card-against-CPU check
+per call, the steady seconds per round of the MLP main path, the steady
+seconds, busy share and peak of the LM phases of `LM_AB` with per-block
+remat on and off (a checkout whose model has no remat runs each once,
+labelled off), and repeats of one reduced LM card-against-CPU check
 with the distance of its h buffer to the band; then that check again
 with the CPU side on one thread and the card's deterministic algorithms
 (turns B, A).
@@ -14,8 +16,9 @@ a process of its own, started in the checkout, that imports the
 checkout's own ``chip_smoke.py`` and package and builds its kernels:
 ``chip_smoke.time_kernels`` for the host milliseconds (its ``host ...
 ms per call``), `drive` of the MLP-128 main path for `MLP_ROUNDS`
-rounds, ``lm_train`` with `LM_ROUNDS` rounds, and `lm_small_case` of
-`SMALL_CASE` `SMALL_REPEATS` times.  Every check keeps its band: a run
+rounds, each phase of `LM_AB` with `LM_ROUNDS` rounds (remat off through
+the trainer's ``cfg`` hook), and `lm_small_case` of `SMALL_CASE`
+`SMALL_REPEATS` times.  Every check keeps its band: a run
 that falls outside it is recorded as a failure with its message, and the
 run goes on.  Prints one table per measurement, the card's name and power
 limit, and writes every turn's record to ``chiprun_out/ab_rounds.json``.
@@ -23,6 +26,7 @@ Exits nonzero without a card or if a turn fails.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -32,6 +36,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 MLP_ROUNDS = 12
 LM_ROUNDS = 5
+#: the LM phases timed with remat on and off: minicpm-2b x 2 (C=4) and
+#: hubert-xlarge x 48 (C=2, int8), the deepest stack
+LM_AB = ("lm_train", "lm_enc")
 SMALL_CASE = "xlstm-1.3b parallel"
 SMALL_REPEATS = 2
 DET_REPEATS = 3
@@ -85,6 +92,40 @@ def _small_runs(c, device, repeats):
     return runs
 
 
+def _remat_modes():
+    """(True, False) where the checkout's model takes ``remat``, else
+    (False,): it keeps every block's activations."""
+    from repro_torch.models import transformer
+    if "remat" in inspect.signature(transformer.forward).parameters:
+        return (True, False)
+    return (False,)
+
+
+def _lm_run(c, label, device, remat):
+    """``c.lm_phase(label)`` with the trainer's configs at ``train_remat =
+    remat``: its steady seconds per round, the profiled round's busy
+    share and the first run's peak, read from its output.  A checkout
+    without remat (``remat`` False only) runs the phase as it is."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    kw = ({"hooks": {"cfg": lambda cfg: dataclasses.replace(
+        cfg, train_remat=remat)}}
+          if "hooks" in inspect.signature(c.lm_phase).parameters else {})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        c.lm_phase(label, device, **kw)
+    out = buf.getvalue()
+    num = r"([0-9.e+-]+)"
+    steady = re.search(rf"{label}: .*steady seconds per round \(rounds "
+                       rf"[0-9-]+\) {num}; peak device memory {num}", out)
+    busy = re.search(rf"busy share of the unprofiled steady round {num}",
+                     out)
+    return {"steady_s": float(steady[1]), "peak": int(steady[2]),
+            "busy": float(busy[1])}
+
+
 def turn_main(mode: str) -> None:
     """One turn, in the current directory's checkout."""
     import contextlib
@@ -133,12 +174,11 @@ def turn_main(mode: str) -> None:
     del data
 
     c.LM_ROUNDS = LM_ROUNDS
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        c.lm_train(device)
-    m = re.search(r"lm_train: .*steady seconds per round \(rounds [0-9-]+\) "
-                  r"([0-9.e+-]+)", buf.getvalue())
-    rec["lm_train_steady_s"] = float(m[1])
+    rec["lm"] = {}
+    for label in LM_AB:
+        for remat in _remat_modes():
+            rec["lm"][f"{label} remat {'on' if remat else 'off'}"] = (
+                _lm_run(c, label, device, remat))
     rec["small"] = _small_runs(c, device, SMALL_REPEATS)
     print(MARK + json.dumps(rec), flush=True)
 
@@ -187,9 +227,16 @@ def main() -> None:
     for k in labels:
         print(f"{k} | " + " | ".join(
             str(t["host_ms"].get(k, "-")) for t in timed))
-    for key in ("mlp_steady_s", "lm_train_steady_s"):
-        print(f"{key} | " + " | ".join(f"{t['name']} {t[key]}"
-                                       for t in timed))
+    print("mlp_steady_s | " + " | ".join(f"{t['name']} {t['mlp_steady_s']}"
+                                         for t in timed))
+    runs = list(dict.fromkeys(k for t in timed for k in t["lm"]))
+    print("LM phase | " + " | ".join(t["name"] for t in timed)
+          + " (steady s, busy share, peak bytes)")
+    for k in runs:
+        print(f"{k} | " + " | ".join(
+            "-" if k not in t["lm"] else
+            f"{t['lm'][k]['steady_s']}, {t['lm'][k]['busy']}, "
+            f"{t['lm'][k]['peak']}" for t in timed))
     for t in turns:
         for i, run in enumerate(t["small"]):
             print(f"{SMALL_CASE} {t['name']} {t['mode']} run {i}: "

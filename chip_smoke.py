@@ -84,11 +84,20 @@ Slice 15 holds the cost tools to the card (`dry_check`): one round of
 (`repro_torch.launch.dryrun.trace`, every kernel entry on its shape-only
 path) must launch exactly what the phase counted and peak within 10% of
 what it measured (printed beside the reckoning, with the roofline time
-over the profiled round's device time); the five full-size dry runs of
-the JAX package's small dry-run test end ``ok``; and it runs the three
+over the profiled round's device time); the five dry runs of the JAX
+package's small dry-run test, at the published widths with the deep
+ones' depth cut, end ``ok``; and it runs the three
 example twins (`examples_check`: fed_llm_train at its defaults,
 comm_compression, serve_batched for chatglm3-6b and xlstm-1.3b), each
 run's launches equal to a trace of the same rounds.
+Slice 16: every LM phase trains with per-block remat (the config
+default; the peaks reckoned on the remat graph) and prints its steady
+seconds, busy share and peak beside the card; `examples_check` also
+runs one cell of Table I's twin (hyperparam_table), one row-2 launch a
+local step; `lm_small_check` first holds remat's loss grads and GNB
+estimate on the card bitwise to those without it (`remat_check`:
+minicpm-2b and deepseek-v2-lite-16b, reduced, fp32 and bf16).  Each
+phase prints its wall seconds (``phase wall seconds:``).
 Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
@@ -3009,7 +3018,19 @@ def lm_argv(arch, layers, clients, ckpt_dir, rounds, *extra):
             "--ckpt-dir", str(ckpt_dir), "--seed", str(SEED), *extra]
 
 
-def reckon_seq_peak(n_params, packed_shape, clients, logits_shape):
+def block_inputs(cfg, clients, batch, seq):
+    """Under remat (``cfg.train_remat``, the default) the backward keeps
+    each block's input, ``(clients, batch, seq, d_model)`` in the
+    parameters' dtype, and recomputes one block at a time: ``(name,
+    bytes)`` pairs (none without remat)."""
+    if not cfg.train_remat:
+        return []
+    width = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return [(f"{cfg.num_layers} blocks' inputs kept for the recompute",
+             cfg.num_layers * clients * batch * seq * cfg.d_model * width)]
+
+
+def reckon_seq_peak(cfg, n_params, packed_shape, clients, logits_shape):
     """The peak of a sequential LM round (`FedEngine._sophia_loop` of one
     client, the others' state resident), reckoned by buffer before the
     run: ``(name, bytes)`` pairs.  P is one fp32 buffer in wire layout.
@@ -3017,7 +3038,8 @@ def reckon_seq_peak(n_params, packed_shape, clients, logits_shape):
     client trains: its θ (P), the zero ĥ of steps without a refresh (P),
     the packed grads (P) and GNB estimate (P), the params view and its
     grads (bf16: P/2 each), the running client sum of the round (P);
-    the logits with their softmax and grad (fp32, three copies)."""
+    the logits with their softmax and grad (fp32, three copies); under
+    remat each block's input (`block_inputs`)."""
     P = packed_shape[0] * packed_shape[1] * 4
     logits = 4 * int(np.prod(logits_shape))
     return [("server θ", P), (f"m and h of {clients} clients",
@@ -3026,7 +3048,8 @@ def reckon_seq_peak(n_params, packed_shape, clients, logits_shape):
             ("packed GNB estimate", P),
             ("params view and its grads (bf16)", 4 * n_params),
             ("client sum of the round", P),
-            ("logits, softmax and grad (fp32)", 3 * logits)]
+            ("logits, softmax and grad (fp32)", 3 * logits)] + block_inputs(
+                cfg, 1, *logits_shape[:2])
 
 
 def reckon_par_peak(cfg, n_params, packed_shape, clients, batch, seq):
@@ -3041,7 +3064,9 @@ def reckon_par_peak(cfg, n_params, packed_shape, clients, batch, seq):
     vocab-wide fp32 tensors of a loss (logits, the pad-masked copy, the
     gumbel noise, their sum, the CE grad); the mLSTM's fp32 (dh, dh)
     carries the backward keeps, three a head, chunk, layer, sequence and
-    client."""
+    client: under remat (the default) those of the one block being
+    recomputed, with each block's input (`block_inputs`), else every
+    mLSTM layer's."""
     P = packed_shape[0] * packed_shape[1] * 4
     C = clients
     vocab = 4 * C * batch * seq * cfg.vocab_padded
@@ -3058,14 +3083,17 @@ def reckon_par_peak(cfg, n_params, packed_shape, clients, batch, seq):
              ("GNB grads and their squares (bf16)", 4 * C * n_params),
              ("vocab-wide fp32 tensors of a loss (five)", 5 * vocab)]
     if n_m:
-        parts.append((f"mLSTM carries kept for backward ({n_m} layers)",
-                      carries))
-    return parts
+        kept = 1 if cfg.train_remat else n_m
+        parts.append((f"mLSTM carries kept for backward ({kept} of {n_m} "
+                      f"layers)", carries // n_m * kept))
+    return parts + block_inputs(cfg, C, batch, seq)
 
 
-def lm_phase(label, device):
+def lm_phase(label, device, hooks=None):
     """One LM phase of `LM_PHASES` through ``repro_torch.launch.train.
-    main``: `LM_ROUNDS` rounds with ``--obs-log`` (a flush a round) and
+    main`` (given ``hooks``, its test seam: ``cfg`` maps the phase's
+    model config, as ``ab_rounds.py`` does to train without remat):
+    `LM_ROUNDS` rounds with ``--obs-log`` (a flush a round) and
     ``--ckpt-dir``, then `LM_RESUME_ROUNDS` resumed from that checkpoint.
     Gates: exact launch counts of each run, finite losses, every record
     valid under the port's schema with its fingerprint in the log's and
@@ -3084,8 +3112,9 @@ def lm_phase(label, device):
     launches = {name: 0 for name in REPLACES}
     from repro_torch.configs import get_fed_overrides, get_model_config
     cfg = dataclasses.replace(get_model_config(arch), num_layers=layers)
+    cfg = (hooks or {}).get("cfg", lambda c: c)(cfg)
     if get_fed_overrides(arch).get("strategy") == "sequential":
-        parts = reckon_seq_peak(n_params, packed_shape, clients,
+        parts = reckon_seq_peak(cfg, n_params, packed_shape, clients,
                                 (LM_BATCH, LM_SEQ, cfg.vocab_padded))
     else:
         parts = reckon_par_peak(cfg, n_params, packed_shape, clients,
@@ -3102,7 +3131,7 @@ def lm_phase(label, device):
         argv = lm_argv(arch, layers, clients, tmp / "ckpt", LM_ROUNDS,
                        *flags, "--obs-log", str(log), "--obs-flush-every",
                        "1")
-        res = train.main(argv)
+        res = train.main(argv, hooks=hooks)
         got = launch_counts()
         want = want_of(LM_ROUNDS)
         print(f"{label}: launches {got}")
@@ -3199,6 +3228,9 @@ def lm_phase(label, device):
         busy = sum(t for t, _ in by_name.values())
         LM_MEASURED[label] = dict(argv=argv, launches=got, peak=peak,
                                   reckoned=reckoned, device_us=busy)
+        print(f"{label}: remat {cfg.train_remat}: steady seconds per round "
+              f"{steady}, busy share {busy / (steady * 1e6)}, peak {peak} "
+              f"bytes (reckoned {reckoned}); {card}")
         for span, (what, kind) in LM_SPANS.items():
             if not (cfg.moe is not None if kind is None
                     else kind in cfg.block_pattern):
@@ -3222,7 +3254,8 @@ def lm_phase(label, device):
 
         reset_launches()
         res = train.main(lm_argv(arch, layers, clients, tmp / "ckpt",
-                                 LM_RESUME_ROUNDS, *flags, "--resume"))
+                                 LM_RESUME_ROUNDS, *flags, "--resume"),
+                         hooks=hooks)
         got = launch_counts()
         want = want_of(LM_RESUME_ROUNDS)
         print(f"{label} resume: launches {got}, losses {res['losses']}, "
@@ -3566,6 +3599,58 @@ def lm_small_case(device, label):
     return launches
 
 
+#: `remat_check`'s archs (a dense one and the MoE one) and its batch,
+#: sequence and width (reduced, 2 layers)
+REMAT_CHECK_ARCHS = ("minicpm-2b", "deepseek-v2-lite-16b")
+REMAT_CHECK_SHAPE = (2, 64, 128)
+
+
+def remat_check(device):
+    """Remat's recompute on the card against its forward: for each arch
+    of `REMAT_CHECK_ARCHS`, at fp32 and at the arch's own dtype, the
+    loss, its grads and the GNB estimate with ``train_remat`` True equal
+    bitwise those with it False, from the same params, batch and noise.
+    A MoE route that flipped between the forward and the recompute would
+    change the grads and no shape, so checkpoint's own check of the
+    recomputed tensors' metadata would pass it."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.core.gnb import gnb_estimate, leaf_grads
+    from repro_torch.models.transformer import LMTask
+    B, S, d = REMAT_CHECK_SHAPE
+    for arch in REMAT_CHECK_ARCHS:
+        base = get_model_config(arch).reduced(d_model=d)
+        for dtype in dict.fromkeys(("float32", base.dtype)):
+            outs = {}
+            for remat in (True, False):
+                cfg = dataclasses.replace(base, dtype=dtype,
+                                          train_remat=remat)
+                task = LMTask(cfg)
+                params = {k: v.to(device) for k, v in task.init(
+                    gen("cpu", SEED + 41), "cpu").items()}
+                batch = {k: v[0].to(device) for k, v in
+                         syn.make_token_batch(gen("cpu", SEED + 42), 1, B,
+                                              S, cfg.vocab_size).items()}
+                noise = gumbel_noise(gen("cpu", SEED + 43),
+                                     (B, S, cfg.vocab_padded), device)
+                pg = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+                loss = task.loss(pg, batch)
+                grads = leaf_grads(loss.sum(), list(pg.values()))
+                h = gnb_estimate(task, params, batch, noise)
+                outs[remat] = ([loss.detach()] + grads
+                               + [h[k] for k in sorted(h)])
+            differ = [i for i, (a, b) in enumerate(zip(outs[True],
+                                                       outs[False]))
+                      if a.dtype != b.dtype or not torch.equal(a, b)]
+            if differ or len(outs[True]) != len(outs[False]):
+                raise SystemExit(f"remat check {arch} {dtype}: remat on and "
+                                 f"off differ in outputs {differ} (loss, "
+                                 f"grads, GNB)")
+            print(f"remat check ({arch}, reduced, {dtype}, B={B} S={S}): "
+                  f"loss, {len(grads)} grads and the GNB estimate with "
+                  f"remat equal bitwise those without")
+
+
 def print_flips(label, spec, want, got, most=8) -> None:
     """Prints the leaf, index, CPU and card values of the first ``most``
     coordinates of the params, m and h outside the small band (m and h:
@@ -3585,8 +3670,9 @@ def print_flips(label, spec, want, got, most=8) -> None:
 
 
 def lm_small_check(device):
-    """Every `LM_SMALL_CASES` run (`lm_small_case`); returns the card's
-    launch counts summed over them."""
+    """`remat_check`, then every `LM_SMALL_CASES` run (`lm_small_case`);
+    returns the card's launch counts summed over the runs."""
+    remat_check(device)
     total = {name: 0 for name in REPLACES}
     for label in LM_SMALL_CASES:
         for k, v in lm_small_case(device, label).items():
@@ -3698,7 +3784,7 @@ def lm_serve(device):
         else:
             full = {"tokens": torch.cat([prompt["tokens"], tok0], dim=1)}
         with torch.no_grad():
-            ref = T.forward(params, cfg, full)[0][:, P]
+            ref = T.forward(params, cfg, full, remat=False)[0][:, P]
         sync()
         peak = torch.cuda.max_memory_allocated()
         dec = res["logits"][1]
@@ -3792,7 +3878,7 @@ def serve_small_check(device):
             with torch.no_grad():
                 lg, cache, _ = T.forward(p, cfg, {k: v.to(dev) for k, v in
                                                   prompt.items()},
-                                         want_cache=True)
+                                         want_cache=True, remat=False)
                 logits.append(lg[:, -1].cpu())
                 # copies: decode writes the recurrent states in place
                 caches.append({k: v.to("cpu", copy=True)
@@ -3965,14 +4051,16 @@ def time_lm_kernels(device):
 DRY_PHASES = ("lm_train", "lm_seq", "lm_moe", "lm_rec", "lm_vlm")
 #: the traced peak within this share of the measured peak, either way
 DRY_PEAK_BAND = 0.10
-#: the full-size dry runs (tests/test_dryrun_small.py's five combos, at
-#: the published widths), two local iterations: (arch, shape, model
-#: config overrides).  qwen3-moe-235b-a22b's round traces in 1,063 s of
-#: host time at its 94 layers (8 sequential clients, about 11 s a layer
-#: on one CPU core), past the phase's 240 s: its depth is cut to 4
-DRY_COMBOS = (("minicpm-2b", "train_4k", None),
-              ("qwen3-moe-235b-a22b", "train_4k", {"num_layers": 4}),
-              ("gemma2-9b", "prefill_32k", None),
+#: the dry runs at the published widths (tests/test_dryrun_small.py's
+#: five combos), two local iterations: (arch, shape, model config
+#: overrides).  A trace costs host time a layer and runs the same code
+#: at every depth, so the deep ones are cut: minicpm-2b's train_4k
+#: round traced in 51 s at its 40 layers, gemma2-9b's prefill_32k in
+#: 24 s at 42, qwen3-moe-235b-a22b's round in 1,063 s at 94 (about 11 s
+#: a layer on one CPU core) and 66 s at 4
+DRY_COMBOS = (("minicpm-2b", "train_4k", {"num_layers": 8}),
+              ("qwen3-moe-235b-a22b", "train_4k", {"num_layers": 2}),
+              ("gemma2-9b", "prefill_32k", {"num_layers": 8}),
               ("deepseek-v2-lite-16b", "decode_32k", None),
               ("xlstm-1.3b", "long_500k", None))
 DRY_LOCAL_ITERS = 2
@@ -3988,9 +4076,9 @@ def dry_check(device):
     counted launches, and its peak must lie within `DRY_PEAK_BAND` of
     ``torch.cuda.max_memory_allocated``; printed beside the reckoned
     peak, with the roofline time (each op's larger term at the card's
-    peaks, summed) over the profiled round's device time.  (b) The
-    full-size dry runs of `DRY_COMBOS` end ``ok``, one line each, with
-    ``fits`` against the card's memory."""
+    peaks, summed) over the profiled round's device time.  (b) The dry
+    runs of `DRY_COMBOS` (published widths, the deep ones cut) end
+    ``ok``, one line each, with ``fits`` against the card's memory."""
     from repro_torch.launch import api, dryrun
     card = card_info()
     cap = torch.cuda.get_device_properties(0).total_memory
@@ -4030,7 +4118,7 @@ def dry_check(device):
         if rec["status"] != "ok":
             raise SystemExit(f"dry_check: {arch} x {shape}: "
                              f"{rec.get('error')}\n{rec.get('traceback')}")
-    print(f"dry_check: full-size dry runs {time.perf_counter() - t_all} s")
+    print(f"dry_check: dry runs of DRY_COMBOS {time.perf_counter() - t_all} s")
 
 
 def traced_launches(bundle) -> dict:
@@ -4039,16 +4127,22 @@ def traced_launches(bundle) -> dict:
     return dryrun.trace(bundle).summary()["launches"]
 
 
+#: the cell of Table I's twin (``hyperparam_table``) that `examples_check`
+#: runs, ``(lr, J)``, and its rounds
+HYPERPARAM_CELL, HYPERPARAM_ROUNDS = (0.001, 5), 3
+
+
 def examples_check(device):
-    """The three example twins on the card: ``fed_llm_train`` at its
+    """The four example twins on the card: ``fed_llm_train`` at its
     defaults (the ~100M LM, 100 rounds) and ``comm_compression`` (four
     regimes of 12 rounds), each run's launches of every kernel of the
     table against a shape-only trace of the same rounds; ``serve_batched``
-    for `SERVE_EXAMPLE_ARCHS`, which launches none.  Returns the launch
-    counts summed over the runs."""
+    for `SERVE_EXAMPLE_ARCHS`, which launches none; ``hyperparam_table``
+    at `HYPERPARAM_CELL` for `HYPERPARAM_ROUNDS` rounds, one row-2 launch
+    a local step.  Returns the launch counts summed over the runs."""
     import tempfile
     from repro_torch.examples import comm_compression, fed_llm_train
-    from repro_torch.examples import serve_batched
+    from repro_torch.examples import hyperparam_table, serve_batched
     from repro_torch.launch import api
     card = card_info()
     launches = {name: 0 for name in REPLACES}
@@ -4124,6 +4218,25 @@ def examples_check(device):
                              "logits not finite")
         print(f"examples_check serve_batched {arch}: tokens "
               f"{tuple(res['tokens'].shape)}; {card}")
+
+    # Table I's twin: one cell, a few rounds (the CNN's direct parallel
+    # round: one row-2 launch a local step)
+    lr, J = HYPERPARAM_CELL
+    reset_launches()
+    res = hyperparam_table.run_cell(lr, J, device,
+                                    hyperparam_table.make_data(device),
+                                    rounds=HYPERPARAM_ROUNDS)
+    check(f"hyperparam_table lr {lr} J {J}", launch_counts(),
+          expect(sophia_update_batched=HYPERPARAM_ROUNDS * J))
+    if not (all(np.isfinite(res["losses"]))
+            and all(0.0 <= a <= 1.0 for a in res["accs"])):
+        raise SystemExit(f"examples_check hyperparam_table: losses "
+                         f"{res['losses']}, accuracies {res['accs']}")
+    print(f"examples_check hyperparam_table lr {lr} J {J}: "
+          f"{HYPERPARAM_ROUNDS} rounds, losses {res['losses']}, test "
+          f"accuracy {res['accs']}, {res['seconds_per_round']} s a round "
+          f"(host clock after a synchronise; the first round builds); "
+          f"{card}")
     return launches
 
 
@@ -4266,33 +4379,41 @@ def main() -> None:
     print("fp8 stores of Tensor.to on the card:")
     fp8_overflow_rule(device)
     print("kernels against their plain versions on the card:")
+    t0 = time.perf_counter()
     err = check_kernels(device)
     err.update(check_quant_kernels(device))
     err.update(check_biased_kernels(device))
     err.update(check_agg_kernels(device))
     err.update(check_fused_step(device))
+    print(f"phase wall seconds: kernel checks "
+          f"{time.perf_counter() - t0:.1f}")
 
-    small_round_check(device)
-    small_comm_round_check(device)
-    small_sched_check(device)
-    small_robust_check(device)
-    small_settings_check(device)
-    launches, steady, narrow = main_path(device)
+    def timed(fn, *args):
+        """``fn(*args)``, printing its wall seconds (the run's time by
+        phase, against its limit)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase wall seconds: {fn.__name__} "
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+        return out
+
+    for check in (small_round_check, small_comm_round_check,
+                  small_sched_check, small_robust_check,
+                  small_settings_check):
+        timed(check, device)
+    launches, steady, narrow = timed(main_path, device)
     print(f"steady seconds per round by path: {json.dumps(steady)}")
-    lm_launches = {"lm_small_check": lm_small_check(device),
-                   "lm_train": lm_train(device), "lm_comm": lm_comm(device),
-                   "lm_seq": lm_seq(device), "lm_moe": lm_moe(device),
-                   "lm_rec": lm_rec(device), "lm_xlstm": lm_xlstm(device),
-                   "lm_enc": lm_enc(device), "lm_vlm": lm_vlm(device),
-                   "serve_small_check": serve_small_check(device),
-                   "lm_serve": lm_serve(device)}
-    dry_check(device)
-    for path_launches in (*lm_launches.values(), examples_check(device)):
+    lm_launches = {fn.__name__: timed(fn, device) for fn in (
+        lm_small_check, lm_train, lm_comm, lm_seq, lm_moe, lm_rec, lm_xlstm,
+        lm_enc, lm_vlm, serve_small_check, lm_serve)}
+    timed(dry_check, device)
+    for path_launches in (*lm_launches.values(),
+                          timed(examples_check, device)):
         for k, v in path_launches.items():
             launches[k] += v
-    timing = time_kernels(device)
+    timing = timed(time_kernels, device)
     narrow_kernels = time_narrow(device, narrow)
-    lm_timing = time_lm_kernels(device)
+    lm_timing = timed(time_lm_kernels, device)
 
     kernels = []
     for name in REPLACES:

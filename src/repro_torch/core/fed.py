@@ -96,7 +96,7 @@ from repro_torch.core.gnb import (accumulate, gnb_estimate, labels_of,
                                   leaf_grads, microbatch_slices)
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
-from repro_torch.kernels.ref import sign, store_as
+from repro_torch.kernels.ref import sign, store_as, store_into
 from repro_torch.models.small import gumbel_noise
 from repro_torch.obs import probes as obs_probes
 from repro_torch.robust.aggregators import aggregate_stack, resolve
@@ -613,12 +613,13 @@ class FedEngine:
         rb = fed.robust
         adversarial = (wire_attack_active(rb, C)
                        or resolve(rb, C) != "mean")
+        out = self._model_out(state)
 
         if fed.strategy == "parallel":
             new_t, new_opt, losses = self._local_update_flat_batched(
                 spec, theta, opts, batches, noise, round_idx, lr)
             if not adversarial:
-                agg_flat = torch.mean(new_t, dim=0)
+                agg_flat = torch.mean(new_t, dim=0, out=out)
         else:
             agg_flat = torch.zeros_like(theta)
             losses, stack = [], []
@@ -632,7 +633,10 @@ class FedEngine:
                     # trimming needs the whole cohort at once
                     stack.append(t_i)
                 else:
-                    agg_flat = agg_flat + t_i / C
+                    # the last add, after the last read of theta, into
+                    # the resident buffer
+                    agg_flat = torch.add(agg_flat, t_i / C,
+                                         out=out if i == C - 1 else None)
                 losses.append(loss)
                 del t_i      # before client i+1 trains
             losses = torch.stack(losses)
@@ -642,10 +646,11 @@ class FedEngine:
             new_opt = opts
 
         if adversarial:
-            agg_flat = theta + self._combine_robust(
-                new_t - theta, byzantine_mask(rb, C), attack_noise)
+            agg_flat = torch.add(theta, self._combine_robust(
+                new_t - theta, byzantine_mask(rb, C), attack_noise), out=out)
         if packed:
-            state = self._apply_aggregate_flat(state, agg_flat)
+            state = self._apply_aggregate_flat(state, agg_flat,
+                                               in_place=True)
         else:
             state = self._apply_aggregate(state, unpack(agg_flat, spec))
         if self._stateful():
@@ -771,9 +776,11 @@ class FedEngine:
             # mean_S(replica + decoded delta), written as a correction
             # against the true server model
             agg = agg + repack(dn_mean - theta_dn, rt.spec_dn, spec)
-        new_theta = theta + agg
+        # theta's last read: the new model goes into the resident buffer
+        new_theta = torch.add(theta, agg, out=self._model_out(state))
         if packed:
-            state = self._apply_aggregate_flat(state, new_theta)
+            state = self._apply_aggregate_flat(state, new_theta,
+                                               in_place=True)
         else:
             state = self._apply_aggregate(state, unpack(new_theta, spec))
 
@@ -1167,30 +1174,54 @@ class FedEngine:
             return self._server_opt_update(state, agg)
         return {**state, "params": agg}
 
-    def _apply_aggregate_flat(self, state, agg_flat):
+    def _model_out(self, state):
+        """Where a round computes its new model: the packed-resident
+        params buffer when the aggregate is the model in its dtype (fp32,
+        no FedOpt), so the round adds no pass to store it (the JAX
+        round's donation); else None, a new buffer."""
+        params = state["params"]
+        if (self.params_packed(params) and params.dtype == torch.float32
+                and self.fed.optimizer not in FEDOPT):
+            return params
+        return None
+
+    def _apply_aggregate_flat(self, state, agg_flat, in_place=False):
         """`_apply_aggregate` for packed-resident state: ``agg_flat`` the
         fp32 aggregate in wire layout, the new model stored in the
-        resident dtype."""
+        resident dtype.  ``in_place`` (the engine's rounds, whose state
+        is not reused): into the resident buffers themselves, ``agg_flat``
+        already the params buffer where `_model_out` gave it; else (the
+        scheduler's apply, whose in-flight clients read the old model)
+        into new buffers."""
         if self.fed.optimizer in FEDOPT:
-            return self._server_opt_update_flat(state, agg_flat)
+            return self._server_opt_update_flat(state, agg_flat, in_place)
+        if in_place:
+            store_into(state["params"], agg_flat)
+            return state
         return {**state,
                 "params": store_as(agg_flat, state["params"].dtype)}
 
-    def _server_step(self, p, m0, v0, agg):
+    def _server_step(self, p, m0, v0, agg, out=(None, None, None)):
         """Adam / Yogi over one fp32 buffer, the JAX operation order:
         ``delta = p - agg``; ``m = b1 m + (1 - b1) delta``; Adam ``v = b2
         v + (1 - b2) delta^2``, Yogi ``v = v - (1 - b2) delta^2
-        sign(v - delta^2)``; ``p - lr m / (sqrt(v) + eps)``."""
+        sign(v - delta^2)``; ``p - lr m / (sqrt(v) + eps)``.  ``out``:
+        the buffers (or None) that the new p, m and v are written into
+        by each one's last op, after its old value's last read."""
         fed = self.fed
+        p_out, m_out, v_out = out
         delta = p - agg
-        m = fed.server_beta1 * m0 + (1 - fed.server_beta1) * delta
+        m = torch.add(fed.server_beta1 * m0, (1 - fed.server_beta1) * delta,
+                      out=m_out)
         if fed.optimizer == "fedadam":
-            v = (fed.server_beta2 * v0
-                 + (1 - fed.server_beta2) * delta * delta)
+            v = torch.add(fed.server_beta2 * v0,
+                          (1 - fed.server_beta2) * delta * delta, out=v_out)
         else:
-            v = v0 - ((1 - fed.server_beta2) * delta * delta
-                      * sign(v0 - delta * delta))
-        return p - fed.server_lr * m / (torch.sqrt(v) + fed.server_eps), m, v
+            v = torch.sub(v0, ((1 - fed.server_beta2) * delta * delta
+                               * sign(v0 - delta * delta)), out=v_out)
+        return torch.sub(p, fed.server_lr * m / (torch.sqrt(v)
+                                                 + fed.server_eps),
+                         out=p_out), m, v
 
     def _server_opt_update(self, state, agg):
         """FedOpt over parameter dicts (server m/v in the params' form);
@@ -1204,13 +1235,21 @@ class FedEngine:
                 "server_opt": {"m": {k: o[1] for k, o in out.items()},
                                "v": {k: o[2] for k, o in out.items()}}}
 
-    def _server_opt_update_flat(self, state, agg):
+    def _server_opt_update_flat(self, state, agg, in_place=False):
         """FedOpt over packed buffers: fp32 compute, each buffer stored
-        back in its resident dtype."""
+        back in its resident dtype; ``in_place``: into the resident
+        buffers (an fp32 one written by its last op)."""
         so = state["server_opt"]
-        f32 = [x.to(torch.float32) for x in (state["params"], so["m"],
-                                             so["v"])]
-        p, m, v = self._server_step(*f32, agg)
+        bufs = (state["params"], so["m"], so["v"])
+        out = [b if in_place and b.dtype == torch.float32 else None
+               for b in bufs]
+        new = self._server_step(*[x.to(torch.float32) for x in bufs], agg,
+                                out=out)
+        if in_place:
+            for b, x in zip(bufs, new):
+                store_into(b, x)
+            return state
+        p, m, v = new
         return {**state, "params": store_as(p, state["params"].dtype),
                 "server_opt": {"m": store_as(m, so["m"].dtype),
                                "v": store_as(v, so["v"].dtype)}}

@@ -69,7 +69,8 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
 
     with torch.no_grad():
         t0 = time.time()
-        logits, cache, _ = T.forward(params, cfg, prompt, want_cache=True)
+        logits, cache, _ = T.forward(params, cfg, prompt, want_cache=True,
+                                     remat=False)
         cache = T.prefill_to_decode_cache(cfg, cache, P, P + G)
         step_logits = [logits[:, -1].float()]
         del logits

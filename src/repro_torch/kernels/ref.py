@@ -30,11 +30,24 @@ def store_as(x, dtype):
     when it is already stored as ``dtype``."""
     if x.dtype == dtype:
         return x
-    if dtype == torch.float8_e4m3fn:
-        x = torch.where(x.abs() > E4M3_OVERFLOW,
-                        torch.copysign(torch.full_like(x, float("nan")), x),
-                        x)
-    return x.to(dtype)
+    return _nan_past_e4m3(x, dtype).to(dtype)
+
+
+def store_into(out, x):
+    """``x`` written into the buffer ``out`` by `store_as`'s rule, one
+    cast pass (``copy_``); nothing when ``x`` is ``out`` (a result
+    computed into it).  Returns ``out``."""
+    if x is not out:
+        out.copy_(x if x.dtype == out.dtype else _nan_past_e4m3(x, out.dtype))
+    return out
+
+
+def _nan_past_e4m3(x, dtype):
+    """For an e4m3 store, ``x`` with NaN (of its sign) past +-464."""
+    if dtype != torch.float8_e4m3fn:
+        return x
+    return torch.where(x.abs() > E4M3_OVERFLOW,
+                       torch.copysign(torch.full_like(x, float("nan")), x), x)
 
 
 #: integer view and magnitude bits of each narrow resident dtype

@@ -223,7 +223,7 @@ def build_prefill(arch_id: str, *, reduced: bool = False,
     def prefill(params, batch):
         with torch.no_grad():
             logits, cache, _ = T.forward(params, cfg, batch,
-                                         want_cache=True)
+                                         want_cache=True, remat=False)
         return logits, cache
 
     meta = dict(arch=arch_id, shape="prefill_32k", entry="serve_prefill",

@@ -137,7 +137,7 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
         t0 = time.perf_counter()
         with obs.annotate("prefill"):
             logits, cache, _ = T.forward(params, cfg, prompt,
-                                         want_cache=True)
+                                         want_cache=True, remat=False)
             cache = T.prefill_to_decode_cache(cfg, cache, P, max_len)
             # a copy: a view would hold the whole (B, P, Vp) tensor
             step_logits = [logits[:, -1].clone()]

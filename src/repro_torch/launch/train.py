@@ -34,8 +34,10 @@ each round's GNB noise come from `torch.Generator`s seeded from
 ``hooks`` (the RNG seam of the tests): ``params`` (initial weights as
 numpy arrays, flat or nested), ``batches`` (round -> batch dict),
 ``round_kwargs`` (round -> extra `FedEngine.round` arguments, e.g. the
-injected ``gumbel``) and ``sched_draws`` (`VirtualScheduler.run`'s
-``draws``).
+injected ``gumbel``), ``sched_draws`` (`VirtualScheduler.run`'s
+``draws``) and ``cfg`` (the CLI's `ModelConfig` -> the one to train:
+``dataclasses.replace(c, train_remat=False)`` trains without remat,
+which no flag of the JAX CLI turns off either).
 """
 from __future__ import annotations
 
@@ -296,6 +298,8 @@ def main(argv=None, *, hooks: Optional[Dict[str, Any]] = None
     dev = resolve_device(args.device)
 
     cfg = model_config(args)
+    if "cfg" in hooks:
+        cfg = hooks["cfg"](cfg)
     fed = fed_config(args)
     comm, robust = fed.comm, fed.robust
     task = T.LMTask(cfg)

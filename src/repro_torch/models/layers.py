@@ -717,6 +717,15 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor):
     logits = matmul(x.to(torch.float32), p["router"])       # (.., B, S, E)
     probs = torch.softmax(logits, dim=-1)
     expert_idx, combine = moe_route(cfg, probs)
+    # Switch-style load-balance auxiliary loss, per leading index; taken
+    # before the expert GEMMs so that under remat the backward's
+    # recompute stops at the last product it needs (the shared experts'
+    # down projection's output is never read)
+    frac_tokens = torch.mean(torch.sum(F.one_hot(expert_idx, E).to(
+        torch.float32), dim=-2), dim=(-3, -2))
+    frac_probs = torch.mean(probs, dim=(-3, -2))
+    aux = mo.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs,
+                                           dim=-1)
     dispatch = (combine > 0).to(x.dtype)
 
     xin = _RouteEinsum.apply("...bsec,...bsd->...ebcd", dispatch, x)
@@ -727,11 +736,4 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor):
                              eout)
     if mo.num_shared:
         out = out + ffn_apply(subtree(p, "shared"), cfg.ffn_kind, x)
-
-    # Switch-style load-balance auxiliary loss, per leading index
-    frac_tokens = torch.mean(torch.sum(F.one_hot(expert_idx, E).to(
-        torch.float32), dim=-2), dim=(-3, -2))
-    frac_probs = torch.mean(probs, dim=(-3, -2))
-    aux = mo.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs,
-                                           dim=-1)
     return out, aux

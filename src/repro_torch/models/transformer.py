@@ -60,6 +60,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -142,6 +143,28 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """Returns ``(x, aux)``: ``aux`` the MoE's aux loss, None for a
     dense FFN or none; with ``want_cache`` or a ``cache`` (decode at
     ``pos``, written in place) ``(x, aux, cache)``, the mixer's cache."""
+    x, y, aux, new_cache = _block_parts(p, cfg, kind, x, positions,
+                                        cache=cache, pos=pos,
+                                        want_cache=want_cache)
+    x = _residual(cfg, x, y)
+    if want_cache or cache is not None:
+        return x, aux, new_cache
+    return x, aux
+
+
+def _residual(cfg: ModelConfig, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    return x + L.scalar(cfg.residual_scale, y) * y
+
+
+def _block_parts(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                 positions: torch.Tensor, *, cache=None,
+                 pos: Optional[int] = None, want_cache: bool = False):
+    """`apply_block` up to its last residual add: ``(x, y, aux, cache)``,
+    the block's output ``x + residual_scale * y`` (`_residual`).  Remat
+    checkpoints this part and adds outside it: that product saves its
+    scalar for the backward, which would make the recompute run the
+    block's last GEMM again, whose output the backward never reads."""
     kind = _effective_kind(cfg, kind)
     km = _mixer_kind(cfg, kind)
     h = L.rms_norm(x, p["ln1"])
@@ -159,18 +182,18 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         mix, new_cache = mix
     if cfg.post_norm:
         mix = L.rms_norm(mix, p["post_ln1"])
-    x = x + L.scalar(cfg.residual_scale, mix) * mix
+    if "ln2" not in p:
+        return x, mix, None, new_cache
+    x = _residual(cfg, x, mix)
+    h = L.rms_norm(x, p["ln2"])
     aux = None
-    if "ln2" in p:
-        h = L.rms_norm(x, p["ln2"])
-        if cfg.moe is not None:
-            f, aux = L.moe_apply(L.subtree(p, "ffn"), cfg, h)
-        else:
-            f = L.ffn_apply(L.subtree(p, "ffn"), cfg.ffn_kind, h)
-        if cfg.post_norm:
-            f = L.rms_norm(f, p["post_ln2"])
-        x = x + L.scalar(cfg.residual_scale, f) * f
-    return (x, aux, new_cache) if cached else (x, aux)
+    if cfg.moe is not None:
+        f, aux = L.moe_apply(L.subtree(p, "ffn"), cfg, h)
+    else:
+        f = L.ffn_apply(L.subtree(p, "ffn"), cfg.ffn_kind, h)
+    if cfg.post_norm:
+        f = L.rms_norm(f, p["post_ln2"])
+    return x, f, aux, new_cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -285,13 +308,16 @@ def _default_positions(cfg: ModelConfig, B: int, S: int, offset: int = 0,
 def _blocks(params: Params, cfg: ModelConfig):
     """Each block's params and kind in the JAX package's order: every
     layer of pattern position 0 (its scan), then of position 1, ...,
-    then the remainder blocks."""
+    then the remainder blocks.  Each stack is unbound once: its backward
+    is one ``stack`` of the layers' grads, each slice written once as
+    the JAX scan's backward writes it (a ``select`` per layer would add
+    a zero-filled copy of the whole stack into its grad per layer)."""
     n_lead = _n_lead(params)
     for pi, kind in enumerate(cfg.block_pattern):
-        stacked = L.subtree(params, f"blocks_{pi}")
+        stacked = {k: v.unbind(n_lead) for k, v in
+                   L.subtree(params, f"blocks_{pi}").items()}
         for layer in range(cfg.pattern_reps):
-            yield {k: v.select(n_lead, layer)
-                   for k, v in stacked.items()}, kind
+            yield {k: v[layer] for k, v in stacked.items()}, kind
     for ri, kind in enumerate(cfg.pattern_remainder):
         yield L.subtree(params, f"rem_{ri}"), kind
 
@@ -307,11 +333,19 @@ def _groups(cfg: ModelConfig):
 
 
 def forward(params: Params, cfg: ModelConfig, batch, *,
-            want_cache: bool = False):
+            want_cache: bool = False, remat: bool = True):
     """Full-sequence forward (train / prefill).  Returns ``(logits,
     cache, aux)``: ``cache`` None unless ``want_cache``; ``aux`` the
     MoE's aux loss summed over the layers in order (``(*lead,)``), None
     for a dense FFN (where the JAX package returns 0).
+
+    ``remat`` (the JAX package's ``jax.checkpoint`` of each block) runs
+    every block under non-reentrant `torch.utils.checkpoint`: the
+    backward keeps each block's input and recomputes the rest, the same
+    ops on the same inputs, so values are bitwise those without it.  The
+    blocks draw no randomness, so no RNG state is kept.  Prefill and
+    serving pass ``remat=False``: a cache is never rematerialised
+    (``want_cache`` with ``remat`` raises).
 
     The cache is the flat ``/``-keyed dict of the JAX package's tree:
     ``g{pi}/<leaf>`` a block-pattern position's caches stacked on a
@@ -320,6 +354,8 @@ def forward(params: Params, cfg: ModelConfig, batch, *,
     remainder block's; serving takes parameters without a client
     axis."""
     check_supported(cfg)
+    if want_cache and remat:
+        raise ValueError("a cache is built with remat=False")
     x = _embed_in(params, cfg, batch)
     B, S = x.shape[-3], x.shape[-2]
     if want_cache and _n_lead(params):
@@ -331,9 +367,15 @@ def forward(params: Params, cfg: ModelConfig, batch, *,
     aux = None
     layer_caches, c = [], []
     for bp, kind in _blocks(params, cfg):
-        x, a, *c = apply_block(bp, cfg, kind, x, positions,
-                               want_cache=want_cache)
-        layer_caches += c
+        if remat:
+            x, y, a, _ = checkpoint.checkpoint(
+                _block_parts, bp, cfg, kind, x, positions,
+                use_reentrant=False, preserve_rng_state=False)
+            x = _residual(cfg, x, y)
+        else:
+            x, a, *c = apply_block(bp, cfg, kind, x, positions,
+                                   want_cache=want_cache)
+            layer_caches += c
         if a is not None:
             # the JAX scan's carry: 0 + a_0 + a_1 + ... (0 + a_0 is a_0)
             aux = a if aux is None else aux + a
@@ -514,7 +556,8 @@ class LMTask:
                 for k, v in params.items()}
 
     def logits(self, params: Params, batch):
-        logits, _, aux = forward(params, self.cfg, batch)
+        logits, _, aux = forward(params, self.cfg, batch,
+                                 remat=self.cfg.train_remat)
         return logits, aux
 
     def loss(self, params: Params, batch, rng=None):

@@ -3,9 +3,9 @@ the CPU: the five combinations of the JAX package's
 tests/test_dryrun_small.py, traced shape-only (`--reduced`, one local
 iteration; the sequential MoE round traces 8 clients) end ``ok`` with a
 record of the JAX record's keys; its skip rules; the donation check
-(it finds the one resident buffer the packed-resident round replaces,
-the params', with its bytes, and fails on it); and the trace's kernel
-launches equal the real CPU round's calls of the kernel entries."""
+(the packed-resident round keeps every resident buffer's storage, the
+params' too); and the trace's kernel launches equal the real CPU
+round's calls of the kernel entries."""
 import json
 
 import pytest
@@ -70,25 +70,26 @@ def test_dryrun_skip_rules_and_fits(tmp_path, capsys):
 
 
 def test_donation_check(capsys):
-    """The round returns the aggregate as a new params buffer (ROADMAP
-    queue 3): the check reports exactly that buffer's bytes, every other
-    resident buffer (the clients' m and h, updated in place by the
-    kernel) kept, and exits 1."""
+    """The round writes its aggregate into the resident params buffer
+    (and the kernel the clients' m and h into theirs): the check finds
+    every resident buffer in its own storage, 0 bytes copied, and exits
+    0."""
     bundle = api.build_train("minicpm-2b", reduced=True, local_iters=2,
                              packed_state=True)
     with FakeTensorMode():
         state = bundle.make_args()[0]
-        params_b = state["params"].untyped_storage().nbytes()
         resident = sum(t.untyped_storage().nbytes()
                        for t in dryrun._resident(state).values())
     with pytest.raises(SystemExit) as ex:
         dryrun.main(["--arch", "minicpm-2b", "--check-donation",
                      "--local-iters", "2", "--out-dir", ""])
     out = capsys.readouterr().out
-    assert ex.value.code == 1, out
-    assert (f"{params_b} of {resident} bytes ({{'params': {params_b}}})"
+    assert ex.value.code == 0, out
+    assert (f"donation card resident={resident}B state_copy_B=0"
             in out), out
     assert len(dryrun._resident(state)) > 1
+    rec = dryrun.run_donation_check("minicpm-2b", local_iters=2)
+    assert (rec["status"], rec["copied"]) == ("ok", {})
 
 
 def test_trace_launches_equal_the_cpu_rounds_calls(monkeypatch):

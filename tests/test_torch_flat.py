@@ -113,12 +113,15 @@ def test_as_dtype_names_match_jax():
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "ab_rounds.py",
+                                 "remat_host.py")]
 
 
 def test_port_imports_no_jax_and_no_repro_statically():
-    """A scan of every port module and chip_smoke.py: no ``import jax``
-    and no import of the JAX package."""
+    """A scan of every port module and the card's scripts (chip_smoke.py,
+    ab_rounds.py, remat_host.py): no ``import jax``,
+    no import of the JAX package and none of its ``benchmarks``."""
     bad = []
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -131,14 +134,14 @@ def test_port_imports_no_jax_and_no_repro_statically():
                 continue
             for n in names:
                 top = n.split(".")[0]
-                if top in ("jax", "jaxlib", "repro"):
+                if top in ("jax", "jaxlib", "repro", "benchmarks"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {n}")
     assert not bad, bad
 
 
 def test_port_imports_without_jax_or_repro():
-    """Every port module imports in a process where ``jax`` and ``repro``
-    cannot be imported at all."""
+    """Every port module imports in a process where ``jax``, ``repro``
+    and ``benchmarks`` cannot be imported at all."""
     mods = []
     for path in sorted(PORT.rglob("*.py")):
         rel = path.relative_to(PORT.parent).with_suffix("")
@@ -166,11 +169,14 @@ def test_port_imports_without_jax_or_repro():
                  "repro_torch.launch.dryrun", "repro_torch.launch.profile",
                  "repro_torch.examples.fed_llm_train",
                  "repro_torch.examples.comm_compression",
-                 "repro_torch.examples.serve_batched"):
+                 "repro_torch.examples.serve_batched",
+                 # slice 16: the last example twin
+                 "repro_torch.examples.hyperparam_table"):
         assert name in mods, name
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['benchmarks'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

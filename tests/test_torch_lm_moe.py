@@ -132,19 +132,23 @@ def recorded_routes():
 class injected_routes:
     """While inside, the port's MoE layers route by ``choices`` (the JAX
     package's ``expert_idx`` of one forward, a layer each), through
-    `layers.moe_route`'s seam: call ``i`` takes ``choices[i % len]``, so
-    each forward from the same params and batch (the loss, its grads,
-    the GNB loss) routes as JAX's did.  Reusable."""
+    `layers.moe_route`'s seam: the ``i``-th distinct router input takes
+    ``choices[i % len]``, and a call on an input seen before takes that
+    input's choice, so each forward from the same params and batch (the
+    loss, the backward's recompute of each block under remat, the GNB
+    loss) routes as JAX's did.  Reusable."""
 
     def __init__(self, choices):
         self.choices = [torch.from_numpy(np.asarray(c).astype(np.int64))
                         for c in choices]
 
     def __enter__(self):
-        route, calls = TL.moe_route, iter(range(10 ** 9))
+        route, seen = TL.moe_route, {}
 
         def injected(cfg, probs, expert_idx=None):
-            idx = self.choices[next(calls) % len(self.choices)]
+            key = probs.detach().numpy().tobytes()
+            n = seen.setdefault(key, len(seen))
+            idx = self.choices[n % len(self.choices)]
             return route(cfg, probs, expert_idx=idx.reshape(
                 probs.shape[:-1] + idx.shape[-1:]))
         self.route, TL.moe_route = route, injected

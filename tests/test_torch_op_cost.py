@@ -9,9 +9,8 @@ dtypes and records the bytes `kernels/cost.py: launch_bytes` counts over
 the real call's operands and outputs; given real CPU tensors it records
 nothing.  The traced GEMM FLOPs of one loss + grad at reduced size match
 the ``dot`` FLOPs of `repro.launch.hlo_cost.HloCost` over the jitted JAX
-loss-and-grad, with JAX's layer rematerialisation off (the port keeps
-its activations; with remat on, JAX's default, the layers' forward GEMMs
-run twice: minicpm-2b's count with it is printed too).
+loss-and-grad, with the layers' rematerialisation on in both packages
+(each block's forward GEMMs run again in the backward) and off in both.
 """
 import dataclasses
 
@@ -204,24 +203,32 @@ def _jax_dot_flops(jcfg, B, S):
 @pytest.mark.parametrize("arch", ["minicpm-2b", "deepseek-v2-lite-16b",
                                   "recurrentgemma-2b"])
 def test_gemm_flops_match_hlo_cost(arch):
+    """Like with like: the port with remat on (the default of both
+    packages) against JAX with it on, where each block's forward GEMMs
+    run again in the backward, and both with it off.  With remat the
+    port's recompute also runs the MoE's combine einsum, whose output
+    the backward does not read and XLA drops: deepseek-v2-lite-16b
+    counts 1.3% above JAX's."""
     B, S = 2, 32
-    tcfg = configs.get_model_config(arch).reduced(d_model=128)
-    jcfg = jconfigs.get_model_config(arch).reduced(d_model=128)
-    with FakeTensorMode(allow_fallback_kernels=False), OpCost() as oc:
-        with oc.setup():
-            params = {k: v.requires_grad_(True) for k, v in
-                      TT.init_lm(torch.Generator().manual_seed(0),
-                                 tcfg).items()}
-            batch = {"tokens": torch.zeros((B, S), dtype=torch.int64),
-                     "labels": torch.zeros((B, S), dtype=torch.int64)}
-        loss = TT.LMTask(tcfg).loss(params, batch)
-        torch.autograd.grad(loss.sum(), list(params.values()),
-                            allow_unused=True)
-    got = sum(oc.summary()["flops_by_dtype"].values())
-    want = _jax_dot_flops(dataclasses.replace(jcfg, train_remat=False), B, S)
-    print(f"{arch}: port {got} GEMM FLOPs; JAX dot {want} without remat")
-    if arch == "minicpm-2b":
-        remat = _jax_dot_flops(jcfg, B, S)
-        print(f"{arch}: JAX dot {remat} with remat (the default; the port "
-              f"counts {got / remat:.4f} of it)")
-    assert abs(got / want - 1.0) <= 0.02
+    for remat in (True, False):
+        tcfg = dataclasses.replace(
+            configs.get_model_config(arch).reduced(d_model=128),
+            train_remat=remat)
+        jcfg = dataclasses.replace(
+            jconfigs.get_model_config(arch).reduced(d_model=128),
+            train_remat=remat)
+        with FakeTensorMode(allow_fallback_kernels=False), OpCost() as oc:
+            with oc.setup():
+                params = {k: v.requires_grad_(True) for k, v in
+                          TT.init_lm(torch.Generator().manual_seed(0),
+                                     tcfg).items()}
+                batch = {"tokens": torch.zeros((B, S), dtype=torch.int64),
+                         "labels": torch.zeros((B, S), dtype=torch.int64)}
+            loss = TT.LMTask(tcfg).loss(params, batch)
+            torch.autograd.grad(loss.sum(), list(params.values()),
+                                allow_unused=True)
+        got = sum(oc.summary()["flops_by_dtype"].values())
+        want = _jax_dot_flops(jcfg, B, S)
+        print(f"{arch}, remat {remat}: port {got} GEMM FLOPs; JAX dot "
+              f"{want}")
+        assert abs(got / want - 1.0) <= 0.02

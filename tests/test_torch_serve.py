@@ -113,7 +113,8 @@ def test_prefill_and_decode_match_jax(case):
     jb, tb = _batches(jcfg, ins[:, :P])
     jl, jcache, _ = JT.forward(jp, jcfg, jb, want_cache=True)
     with torch.no_grad():
-        tl, tcache, _ = TT.forward(tp, tcfg, tb, want_cache=True)
+        tl, tcache, _ = TT.forward(tp, tcfg, tb, want_cache=True,
+                                   remat=False)
     _band(tl, jl, f"{case} prefill logits", band)
     _same_cache(tcache, jcache, f"{case} prefill cache", band)
     jcache = JT.prefill_to_decode_cache(jcfg, jcache, P, P + G)
@@ -160,7 +161,7 @@ def test_long_mode_swa_only_serves_every_block_local():
         ins[:, :24])}, want_cache=True)
     with torch.no_grad():
         _, tcache, _ = TT.forward(tp, tcfg, {"tokens": torch.tensor(
-            ins[:, :24])}, want_cache=True)
+            ins[:, :24])}, want_cache=True, remat=False)
     jcache = JT.prefill_to_decode_cache(jcfg, jcache, 24, 40)
     tcache = TT.prefill_to_decode_cache(tcfg, tcache, 24, 40)
     _same_cache(tcache, jcache, "swa-only layout")
@@ -202,7 +203,7 @@ def test_decode_at_or_past_the_end_clamps_as_jax(arch):
         ins[:, :8])}, want_cache=True)
     with torch.no_grad():
         _, tcache, _ = TT.forward(tp, tcfg, {"tokens": torch.tensor(
-            ins[:, :8])}, want_cache=True)
+            ins[:, :8])}, want_cache=True, remat=False)
     jcache = JT.prefill_to_decode_cache(jcfg, jcache, 8, 10)
     tcache = TT.prefill_to_decode_cache(tcfg, tcache, 8, 10)
     for pos in (9, 10, 13):
@@ -236,11 +237,11 @@ def test_decode_equals_forward(arch):
     with torch.no_grad():
         _, cache, _ = TT.forward(params, tcfg, {k: v[:, :S] for k, v in
                                                 full.items()},
-                                 want_cache=True)
+                                 want_cache=True, remat=False)
         cache = TT.prefill_to_decode_cache(tcfg, cache, S, S + 4)
         dec, _ = TT.decode_step(params, tcfg, {k: v[:, S:] for k, v in
                                                full.items()}, cache, S)
-        ref, _, _ = TT.forward(params, tcfg, full)
+        ref, _, _ = TT.forward(params, tcfg, full, remat=False)
     np.testing.assert_allclose(dec[:, 0].numpy(), ref[:, S].numpy(),
                                rtol=1e-3, atol=2e-3)
 
