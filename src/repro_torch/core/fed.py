@@ -74,6 +74,13 @@ its mean path, bitwise.
 With ``ObsConfig.probes`` the round's metrics also carry the Sophia
 health scalars of `repro_torch.obs.probes`, read from the state the
 round produced (which stays bitwise the unprobed round's).
+
+Profiler ranges: a round runs inside `repro_torch.obs.spans.ROUND_SPAN`
+and each piece of its work inside one of the disjoint phase ranges of
+`repro_torch.obs.spans.PHASES` (loss/grad, GNB, pack, optimizer, comm,
+aggregate), the backwards included (`spans.spanned`); the client steps
+and the server step open theirs also when the virtual-time scheduler
+calls them.  They move no value.
 """
 from __future__ import annotations
 
@@ -92,13 +99,16 @@ from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, cat_rows,
                                    flat_spec, pack, put_rows_, repack,
                                    take_rows, unpack, with_cols, zeros)
 from repro_torch.configs.base import COMM_STREAMS, FedConfig
-from repro_torch.core.gnb import (accumulate, gnb_estimate, labels_of,
-                                  leaf_grads, microbatch_slices)
+from repro_torch.core.gnb import (gnb_estimate, labels_of,
+                                  value_and_grads)
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
 from repro_torch.kernels.ref import sign, store_as, store_into
 from repro_torch.models.small import gumbel_noise
 from repro_torch.obs import probes as obs_probes
+from repro_torch.obs import spans
+from repro_torch.obs.spans import (AGGREGATE, COMM, GNB, LOSS_GRAD,
+                                   OPTIMIZER, PACK, annotate)
 from repro_torch.robust.aggregators import aggregate_stack, resolve
 from repro_torch.robust.attacks import (attack_wires, byzantine_mask,
                                         wire_attack_active)
@@ -422,6 +432,11 @@ class FedEngine:
         residuals and replicas included — the counterpart of the JAX
         round's buffer donation: do not reuse the state passed in;
         rebind the returned one."""
+        with annotate(spans.ROUND_SPAN):
+            return self._round(state, batches, generator, gumbel,
+                               comm_noise)
+
+    def _round(self, state, batches, generator, gumbel, comm_noise):
         fed = self.fed
         round_idx = int(state["round"])
         lr = lr_at_round(fed, round_idx)
@@ -607,8 +622,9 @@ class FedEngine:
         C = fed.num_clients
         params = state["params"]
         packed = self.params_packed(params)
-        theta = (params.to(torch.float32) if packed
-                 else pack(params, spec))
+        with annotate(PACK):
+            theta = (params.to(torch.float32) if packed
+                     else pack(params, spec))
         opts = state.get("client_opt") if self._stateful() else None
         rb = fed.robust
         adversarial = (wire_attack_active(rb, C)
@@ -619,9 +635,11 @@ class FedEngine:
             new_t, new_opt, losses = self._local_update_flat_batched(
                 spec, theta, opts, batches, noise, round_idx, lr)
             if not adversarial:
-                agg_flat = torch.mean(new_t, dim=0, out=out)
+                with annotate(AGGREGATE):
+                    agg_flat = torch.mean(new_t, dim=0, out=out)
         else:
-            agg_flat = torch.zeros_like(theta)
+            with annotate(AGGREGATE):
+                agg_flat = torch.zeros_like(theta)
             losses, stack = [], []
             for i in range(C):
                 opt_i = (None if opts is None
@@ -635,28 +653,30 @@ class FedEngine:
                 else:
                     # the last add, after the last read of theta, into
                     # the resident buffer
-                    agg_flat = torch.add(agg_flat, t_i / C,
-                                         out=out if i == C - 1 else None)
+                    with annotate(AGGREGATE):
+                        agg_flat = torch.add(
+                            agg_flat, t_i / C,
+                            out=out if i == C - 1 else None)
                 losses.append(loss)
                 del t_i      # before client i+1 trains
-            losses = torch.stack(losses)
-            if adversarial:
-                new_t = torch.stack(stack)
+            with annotate(AGGREGATE):
+                losses = torch.stack(losses)
+                if adversarial:
+                    new_t = torch.stack(stack)
             # each client's m/h rows were updated in place in the stack
             new_opt = opts
 
         if adversarial:
-            agg_flat = torch.add(theta, self._combine_robust(
-                new_t - theta, byzantine_mask(rb, C), attack_noise), out=out)
-        if packed:
-            state = self._apply_aggregate_flat(state, agg_flat,
-                                               in_place=True)
-        else:
-            state = self._apply_aggregate(state, unpack(agg_flat, spec))
+            with annotate(AGGREGATE):
+                agg_flat = torch.add(theta, self._combine_robust(
+                    new_t - theta, byzantine_mask(rb, C), attack_noise),
+                    out=out)
+        state = self._server_apply(state, agg_flat, spec, packed)
         if self._stateful():
             # the kernel stored the m/h rows in their own dtypes
             state = {**state, "client_opt": new_opt}
-        return state, torch.mean(losses)
+        with annotate(AGGREGATE):
+            return state, torch.mean(losses)
 
     def _round_comm(self, state, batches, generator, gumbel, comm_noise,
                     round_idx, lr, rt):
@@ -671,10 +691,12 @@ class FedEngine:
         spec = rt.spec
         params = state["params"]
         packed = self.params_packed(params)
-        theta = (params.to(torch.float32) if packed
-                 else pack(params, spec))
-        theta_dn = repack(theta, spec, rt.spec_dn) if rt.dn_on else None
-        ids = self._participants(generator, comm_noise)
+        with annotate(PACK):
+            theta = (params.to(torch.float32) if packed
+                     else pack(params, spec))
+            theta_dn = repack(theta, spec, rt.spec_dn) if rt.dn_on else None
+        with annotate(COMM):
+            ids = self._participants(generator, comm_noise)
         gnb = self._gumbel_source(batches, generator, gumbel, ids)
         uniform = self._uniform_source(rt, generator, comm_noise, ids)
         opts = state.get("client_opt") if self._stateful() else None
@@ -686,10 +708,11 @@ class FedEngine:
             # gathered rows keep their storage dtype
             return x if x is None or ids is None else take_rows(x, ids)
 
-        opts_g = (None if opts is None
-                  else SophiaState(m=take(opts.m), h=take(opts.h)))
-        ef_g, dnm_g, dnef_g = take(ef), take(dn_model), take(dn_ef)
-        batches_g = {k: take(v) for k, v in batches.items()}
+        with annotate(COMM):
+            opts_g = (None if opts is None
+                      else SophiaState(m=take(opts.m), h=take(opts.h)))
+            ef_g, dnm_g, dnef_g = take(ef), take(dn_model), take(dn_ef)
+            batches_g = {k: take(v) for k, v in batches.items()}
 
         # adversarial fleet: attacks act on the participants' uplink
         # wires only; the replica correction and the hessian stream keep
@@ -716,21 +739,23 @@ class FedEngine:
                 dnef_g, batches_g,
                 ClientNoise(lambda j: gnb(cohort, j),
                             lambda stream: uniform(stream, cohort)))
-            agg = combine(wires)
-            wstat = torch.sum(stats) / S
-            if rt.dn_on:
-                dn_mean = torch.sum(dnm_new, dim=0) / S
-            if rt.h_on:
-                h_agg = torch.sum(h_hat, dim=0) / S
-                h_wstat = torch.sum(h_stats) / S
+            with annotate(AGGREGATE):
+                agg = combine(wires)
+                wstat = torch.sum(stats) / S
+                if rt.dn_on:
+                    dn_mean = torch.sum(dnm_new, dim=0) / S
+                if rt.h_on:
+                    h_agg = torch.sum(h_hat, dim=0) / S
+                    h_wstat = torch.sum(h_stats) / S
         else:
-            agg = zeros(spec, device=self.device)
-            wstat = torch.zeros((), device=self.device)
-            dn_mean = zeros(rt.spec_dn, device=self.device) if rt.dn_on \
-                else None
-            if rt.h_on:
-                h_agg = zeros(rt.spec_h, device=self.device)
-                h_wstat = torch.zeros((), device=self.device)
+            with annotate(AGGREGATE):
+                agg = zeros(spec, device=self.device)
+                wstat = torch.zeros((), device=self.device)
+                dn_mean = (zeros(rt.spec_dn, device=self.device)
+                           if rt.dn_on else None)
+                if rt.h_on:
+                    h_agg = zeros(rt.spec_h, device=self.device)
+                    h_wstat = torch.zeros((), device=self.device)
             losses, stack = [], []
             for k in range(S):
                 opt_k = (None if opts_g is None
@@ -744,45 +769,47 @@ class FedEngine:
                     {n: v[k] for n, v in batches_g.items()},
                     ClientNoise(lambda j, k=k: gnb(k, j),
                                 lambda stream, k=k: uniform(stream, k)))
-                if collect:
-                    # robust or attacked: trimming needs the whole cohort
-                    stack.append(wire)
-                else:
-                    agg = agg + wire / S
-                wstat = wstat + stat / S
-                # client k's rows are read only by its own step: its new
-                # rows go straight back into the (gathered) stacks
-                for rows, new in ((ef_g, ef_k), (dnm_g, dnm_k),
-                                  (dnef_g, dnef_k)):
-                    if rows is not None:
-                        rows[k].copy_(store_as(new, rows.dtype))
-                if rt.dn_on:
-                    dn_mean = dn_mean + dnm_k / S
-                if rt.h_on:
-                    h_agg = h_agg + h_hat_k / S
-                    h_wstat = h_wstat + h_stat_k / S
+                with annotate(AGGREGATE):
+                    if collect:
+                        # robust or attacked: trimming needs the whole
+                        # cohort
+                        stack.append(wire)
+                    else:
+                        agg = agg + wire / S
+                    wstat = wstat + stat / S
+                    # client k's rows are read only by its own step: its
+                    # new rows go straight back into the (gathered) stacks
+                    for rows, new in ((ef_g, ef_k), (dnm_g, dnm_k),
+                                      (dnef_g, dnef_k)):
+                        if rows is not None:
+                            rows[k].copy_(store_as(new, rows.dtype))
+                    if rt.dn_on:
+                        dn_mean = dn_mean + dnm_k / S
+                    if rt.h_on:
+                        h_agg = h_agg + h_hat_k / S
+                        h_wstat = h_wstat + h_stat_k / S
                 losses.append(loss)
                 # client k's outputs go before client k+1 trains
                 del wire, ef_k, dnm_k, dnef_k, h_hat_k
-            losses = torch.stack(losses)
-            if collect:
-                agg = combine(torch.stack(stack))
+            with annotate(AGGREGATE):
+                losses = torch.stack(losses)
+                if collect:
+                    agg = combine(torch.stack(stack))
             # the m/h rows were updated in place in the (gathered) stacks
             ef_new, opt_new, dnm_new, dnef_new = ef_g, opts_g, dnm_g, dnef_g
 
-        agg = rt.comp.server_combine(agg, wstat)
-        if rt.dn_on:
-            # clients trained from their OWN replicas: the aggregate is
-            # mean_S(replica + decoded delta), written as a correction
-            # against the true server model
-            agg = agg + repack(dn_mean - theta_dn, rt.spec_dn, spec)
-        # theta's last read: the new model goes into the resident buffer
-        new_theta = torch.add(theta, agg, out=self._model_out(state))
-        if packed:
-            state = self._apply_aggregate_flat(state, new_theta,
-                                               in_place=True)
-        else:
-            state = self._apply_aggregate(state, unpack(new_theta, spec))
+        with annotate(COMM):
+            agg = rt.comp.server_combine(agg, wstat)
+        with annotate(AGGREGATE):
+            if rt.dn_on:
+                # clients trained from their OWN replicas: the aggregate
+                # is mean_S(replica + decoded delta), written as a
+                # correction against the true server model
+                agg = agg + repack(dn_mean - theta_dn, rt.spec_dn, spec)
+            # theta's last read: the new model goes into the resident
+            # buffer
+            new_theta = torch.add(theta, agg, out=self._model_out(state))
+        state = self._server_apply(state, new_theta, spec, packed)
 
         def scatter(full, rows):
             # rows stored back in the resident dtype
@@ -791,28 +818,32 @@ class FedEngine:
             return put_rows_(full, ids, rows)
 
         if opts is not None:
-            h = scatter(opts.h, opt_new.h)
+            with annotate(AGGREGATE):
+                h = scatter(opts.h, opt_new.h)
             if rt.h_on:
                 # curvature averaging: every participant's h re-synced to
                 # the re-quantized common broadcast
-                h_down, _ = rt.comp_h.roundtrip(
-                    uniform("server_hessian", None),
-                    rt.comp_h.server_combine(h_agg, h_wstat))
-                h_common = store_as(repack(h_down, rt.spec_h, spec),
-                                    h.dtype)
-                h_common = h_common.expand((S,) + tuple(h_common.shape))
-                if ids is None:
-                    h.copy_(h_common)
-                else:
-                    put_rows_(h, ids, h_common)
-            state = {**state, "client_opt": SophiaState(
-                m=scatter(opts.m, opt_new.m), h=h)}
-        for key, full, rows in (("comm_ef", ef, ef_new),
-                                (downlink.MODEL_KEY, dn_model, dnm_new),
-                                (downlink.EF_KEY, dn_ef, dnef_new)):
-            if full is not None:
-                state = {**state, key: scatter(full, rows)}
-        return state, torch.mean(losses)
+                with annotate(COMM):
+                    h_down, _ = rt.comp_h.roundtrip(
+                        uniform("server_hessian", None),
+                        rt.comp_h.server_combine(h_agg, h_wstat))
+                    h_common = store_as(repack(h_down, rt.spec_h, spec),
+                                        h.dtype)
+                    h_common = h_common.expand((S,) + tuple(h_common.shape))
+                    if ids is None:
+                        h.copy_(h_common)
+                    else:
+                        put_rows_(h, ids, h_common)
+            with annotate(AGGREGATE):
+                state = {**state, "client_opt": SophiaState(
+                    m=scatter(opts.m, opt_new.m), h=h)}
+        with annotate(AGGREGATE):
+            for key, full, rows in (("comm_ef", ef, ef_new),
+                                    (downlink.MODEL_KEY, dn_model, dnm_new),
+                                    (downlink.EF_KEY, dn_ef, dnef_new)):
+                if full is not None:
+                    state = {**state, key: scatter(full, rows)}
+            return state, torch.mean(losses)
 
     # ----------------------------------------------- comm-path client step
     def comm_client_step(self, rt: CommRuntime, theta, theta_dn, round_idx,
@@ -829,21 +860,26 @@ class FedEngine:
         stat, ef_new, opt_new, loss, dnm_new, dnef_new, h_hat, h_stat)``
         with None for inactive pieces."""
         if rt.dn_on:
-            dnm_i, dnef_i = downlink.broadcast(
-                rt.comp_dn, noise.uniform("downlink"), theta_dn, dnm_i,
-                dnef_i)
-            start = repack(dnm_i, rt.spec_dn, rt.spec)
+            with annotate(COMM):
+                dnm_i, dnef_i = downlink.broadcast(
+                    rt.comp_dn, noise.uniform("downlink"), theta_dn, dnm_i,
+                    dnef_i)
+            with annotate(PACK):
+                start = repack(dnm_i, rt.spec_dn, rt.spec)
         else:
             start = theta
         t_i, opt_i, loss = self._local_update_flat(
             rt.spec, start, opt, batch, noise.gumbel, round_idx, lr)
-        xhat, stat, ef_new = rt.comp.encode_delta(
-            noise.uniform("uplink"), t_i, start, ef_i)
+        with annotate(COMM):
+            xhat, stat, ef_new = rt.comp.encode_delta(
+                noise.uniform("uplink"), t_i, start, ef_i)
         h_hat = h_stat = None
         if rt.h_on:
-            h_hat, h_stat = rt.comp_h.roundtrip(
-                noise.uniform("hessian"),
-                repack(opt_i.h, rt.spec, rt.spec_h).to(torch.float32))
+            with annotate(PACK):
+                h32 = repack(opt_i.h, rt.spec, rt.spec_h).to(torch.float32)
+            with annotate(COMM):
+                h_hat, h_stat = rt.comp_h.roundtrip(noise.uniform("hessian"),
+                                                    h32)
         return (xhat, stat, ef_new, opt_i, loss,
                 dnm_i if rt.dn_on else None, dnef_i, h_hat, h_stat)
 
@@ -867,22 +903,27 @@ class FedEngine:
                 rt, theta, theta_dn, round_idx, lr, opts, efs, dnms, dnefs,
                 batches, noise, chunk)
         if rt.dn_on:
-            dnms, dnefs = downlink.broadcast_batched(
-                rt.comp_dn, noise.uniform("downlink"), theta_dn, dnms,
-                dnefs)
-            starts = repack(dnms, rt.spec_dn, rt.spec)
+            with annotate(COMM):
+                dnms, dnefs = downlink.broadcast_batched(
+                    rt.comp_dn, noise.uniform("downlink"), theta_dn, dnms,
+                    dnefs)
+            with annotate(PACK):
+                starts = repack(dnms, rt.spec_dn, rt.spec)
         else:
             starts = theta
         t, opt, losses = self._local_update_flat_batched(
             rt.spec, starts, opts, batches, lambda _, j: noise.gumbel(j),
             round_idx, lr)
-        xhat, stats, ef_new = rt.comp.encode_delta_batched(
-            noise.uniform("uplink"), t, starts, efs)
+        with annotate(COMM):
+            xhat, stats, ef_new = rt.comp.encode_delta_batched(
+                noise.uniform("uplink"), t, starts, efs)
         h_hat = h_stats = None
         if rt.h_on:
-            h_hat, h_stats = rt.comp_h.roundtrip_batched(
-                noise.uniform("hessian"),
-                repack(opt.h, rt.spec, rt.spec_h).to(torch.float32))
+            with annotate(PACK):
+                h32 = repack(opt.h, rt.spec, rt.spec_h).to(torch.float32)
+            with annotate(COMM):
+                h_hat, h_stats = rt.comp_h.roundtrip_batched(
+                    noise.uniform("hessian"), h32)
         return (xhat, stats, ef_new, opt, losses,
                 dnms if rt.dn_on else None, dnefs, h_hat, h_stats)
 
@@ -935,7 +976,8 @@ class FedEngine:
                 return SophiaState(m=cat_rows([p.m for p in parts]),
                                    h=cat_rows([p.h for p in parts]))
             return cat_rows(parts)
-        return tuple(cat(list(p)) for p in zip(*outs))
+        with annotate(PACK):
+            return tuple(cat(list(p)) for p in zip(*outs))
 
     # ------------------------------------------------- one client, dispatch
     def _local_update_flat(self, spec, theta, opt, batch, noise, round_idx,
@@ -948,8 +990,9 @@ class FedEngine:
         fed = self.fed
         if fed.optimizer == "fed_sophia":
             if opt is None:   # stateless: fresh EMAs each round
-                opt = SophiaState(m=zeros(spec, device=theta.device),
-                                  h=zeros(spec, device=theta.device))
+                with annotate(OPTIMIZER):
+                    opt = SophiaState(m=zeros(spec, device=theta.device),
+                                      h=zeros(spec, device=theta.device))
             t, m, h, loss = self._local_sophia_flat(
                 spec, theta, opt.m, opt.h, batch, round_idx, noise, lr)
             opt = SophiaState(m=m, h=h)
@@ -972,16 +1015,18 @@ class FedEngine:
         N = int(labels_of(batches).shape[0])
         if fed.optimizer == "fed_sophia":
             if opts is None:   # stateless: fresh EMAs each round
-                opts = SophiaState(
-                    m=zeros(spec, (N,), device=theta.device),
-                    h=zeros(spec, (N,), device=theta.device))
+                with annotate(OPTIMIZER):
+                    opts = SophiaState(
+                        m=zeros(spec, (N,), device=theta.device),
+                        h=zeros(spec, (N,), device=theta.device))
             t, m, h, loss = self._local_sophia_flat_batched(
                 spec, theta, opts.m, opts.h, batches, round_idx, noise, lr)
             opt = SophiaState(m=m, h=h)
             return t, (opt if fed.persistent_client_state else None), loss
         if fed.optimizer == "done":
-            t, loss = self._local_done_flat(
-                spec, self._cohort_start(theta, N), batches, lr)
+            with annotate(PACK):
+                start = self._cohort_start(theta, N)
+            t, loss = self._local_done_flat(spec, start, batches, lr)
             return t, None, loss
         t, loss = self._local_sgd_flat_batched(spec, theta, batches, lr)
         return t, None, loss
@@ -995,22 +1040,20 @@ class FedEngine:
         summed over the batch's n slices in order (the JAX engine's
         ``_value_and_grad``).  Also returns the params view for the GNB
         refresh."""
-        pg = {k: v.detach().requires_grad_(True)
-              for k, v in unpack(theta, spec).items()}
-        n = self.fed.grad_microbatches
-        loss = grads = None
-        for mb in microbatch_slices(batch, n):
-            loss_i = self.task.loss(pg, mb)
-            g = leaf_grads(loss_i.sum(), [pg[k] for k in spec.keys])
-            loss_i = loss_i.detach()
-            loss = loss_i if n <= 1 else (
-                loss_i / n if loss is None else loss + loss_i / n)
-            grads = accumulate(grads, g, n)
-        return loss, pack(dict(zip(spec.keys, grads)), spec), pg
+        with annotate(PACK):
+            pg = {k: v.detach().requires_grad_(True)
+                  for k, v in unpack(theta, spec).items()}
+        loss, grads = value_and_grads(self.task.loss, pg, batch,
+                                      self.fed.grad_microbatches, LOSS_GRAD)
+        with annotate(PACK):
+            return loss, pack(dict(zip(spec.keys, grads)), spec), pg
 
-    def _gnb(self, params, batch, gumbel):
-        """The GNB estimate of ``params`` in wire layout (micro-batched
-        as the loss/grad boundary is)."""
+    def _gnb(self, params, batch, noise, j):
+        """The GNB estimate of ``params`` from gumbel draw ``j``
+        (micro-batched as the loss/grad boundary is); the draw is freed
+        when it returns."""
+        with annotate(GNB):
+            gumbel = noise(j)
         return gnb_estimate(self.task, params, batch, gumbel,
                             self.fed.grad_microbatches)
 
@@ -1019,15 +1062,22 @@ class FedEngine:
         ``h`` (one client ``(rows, cols)``, or a cohort ``(N, rows,
         cols)``), updated in place.  Returns the per-step losses."""
         fed = self.fed
-        no_hh = torch.zeros_like(t)
+        with annotate(GNB):
+            no_hh = torch.zeros_like(t)
         # round mode (Alg. 1 line 9 literal): the GNB estimate uses the
         # round-start params, once per refresh round
         round_mode = fed.hessian_every_unit == "round"
         if round_mode:
             do_h_round = round_idx % fed.tau == 0
-            hh_round = (pack(self._gnb(unpack(t, spec), batch, noise(0)),
-                             spec)
-                        if do_h_round else no_hh)
+            hh_round = no_hh
+            if do_h_round:
+                with annotate(PACK):
+                    p0 = unpack(t, spec)
+                h0 = self._gnb(p0, batch, noise, 0)
+                del p0               # before the pack, as it was
+                with annotate(PACK):
+                    hh_round = pack(h0, spec)
+                del h0
         losses = []
         for j in range(fed.local_iters):
             loss, g, pg = self._flat_value_and_grad(t, batch, spec)
@@ -1036,28 +1086,35 @@ class FedEngine:
                 hh = hh_round
             else:
                 do_h = (round_idx * fed.local_iters + j) % fed.tau == 0
-                hh = (pack(self._gnb(pg, batch, noise(j)), spec)
-                      if do_h else no_hh)
+                hh = no_hh
+                if do_h:
+                    hh = self._gnb(pg, batch, noise, j)
+                    with annotate(PACK):
+                        hh = pack(hh, spec)
             # in place: the engine owns t, and m/h are the resident EMAs
             # (the counterpart of the JAX round's buffer donation)
-            sophia_step_flat(
-                t, m, h, g, hh, do_h, lr=lr, beta1=fed.beta1,
-                beta2=fed.beta2, rho=fed.rho, eps=fed.eps,
-                weight_decay=fed.weight_decay, inplace=True)
+            with annotate(OPTIMIZER):
+                sophia_step_flat(
+                    t, m, h, g, hh, do_h, lr=lr, beta1=fed.beta1,
+                    beta2=fed.beta2, rho=fed.rho, eps=fed.eps,
+                    weight_decay=fed.weight_decay, inplace=True)
             losses.append(loss)
             # this step's grads and params view go before the next
             # step's are made (two of each would coexist: gigabytes at
             # an LM's size)
             del g, pg, hh
-        return torch.stack(losses)
+        with annotate(AGGREGATE):
+            return torch.stack(losses)
 
     def _local_sophia_flat(self, spec, theta, m, h, batch, round_idx, noise,
                            lr):
         """Flat-resident Sophia local loop of one client."""
-        t = theta.clone()          # theta is not the engine's to write
+        with annotate(PACK):
+            t = theta.clone()      # theta is not the engine's to write
         losses = self._sophia_loop(spec, t, m, h, batch, round_idx, noise,
                                    lr)
-        return t, m, h, torch.mean(losses)
+        with annotate(AGGREGATE):
+            return t, m, h, torch.mean(losses)
 
     @staticmethod
     def _cohort_start(theta, n: int) -> torch.Tensor:
@@ -1076,11 +1133,13 @@ class FedEngine:
         """`_local_sophia_flat` for N clients at once: one batched kernel
         launch per local iteration over the ``(N, rows, cols)``
         stacks."""
-        t = self._cohort_start(theta, m.shape[0])
+        with annotate(PACK):
+            t = self._cohort_start(theta, m.shape[0])
         cohort = slice(None)
         losses = self._sophia_loop(spec, t, m, h, batches, round_idx,
                                    lambda j: noise(cohort, j), lr)
-        return t, m, h, torch.mean(losses, dim=0)
+        with annotate(AGGREGATE):
+            return t, m, h, torch.mean(losses, dim=0)
 
     def _local_sgd_flat(self, spec, theta, batch, lr):
         """Flat-resident local SGD: the update is one flat axpy."""
@@ -1088,13 +1147,16 @@ class FedEngine:
         losses = []
         for _ in range(self.fed.local_iters):
             loss, g, _ = self._flat_value_and_grad(t, batch, spec)
-            t = t - lr * g
+            with annotate(OPTIMIZER):
+                t = t - lr * g
             losses.append(loss)
-        return t, torch.mean(torch.stack(losses), dim=0)
+        with annotate(AGGREGATE):
+            return t, torch.mean(torch.stack(losses), dim=0)
 
     def _local_sgd_flat_batched(self, spec, theta, batches, lr):
         """`_local_sgd_flat` for N clients at once."""
-        t = self._cohort_start(theta, int(labels_of(batches).shape[0]))
+        with annotate(PACK):
+            t = self._cohort_start(theta, int(labels_of(batches).shape[0]))
         return self._local_sgd_flat(spec, t, batches, lr)
 
     # ------------------------------------------------------- DONE (local)
@@ -1118,12 +1180,13 @@ class FedEngine:
         loss)``."""
         fed = self.fed
         lead = theta.ndim - 2
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in unpack(theta, spec).items()}
+        with annotate(PACK):
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in unpack(theta, spec).items()}
         keys = list(spec.keys)           # sorted: the JAX leaf order
         leaves = [params[k] for k in keys]
-        loss = self.task.loss(params, batch)
-        g = leaf_grads(loss.sum(), leaves, create_graph=True)
+        loss, g = value_and_grads(self.task.loss, params, batch, 1,
+                                  LOSS_GRAD, create_graph=True)
         g0 = [x.detach() for x in g]
         # the grads with a graph: an unreached leaf's zeros have none,
         # and add nothing to a product
@@ -1146,32 +1209,48 @@ class FedEngine:
         def per_client(s, x):
             return s.reshape(s.shape + (1,) * (x.ndim - lead))
 
-        gn = norm(g0)
-        v = [x / per_client(gn + 1e-12, x) for x in g0]
-        for _ in range(5):
-            hv = hvp(v)
-            nrm = norm(hv) + 1e-12
-            v = [x / per_client(nrm, x) for x in hv]
-        alpha = 0.9 / (nrm + fed.done_damping)
-        d = [torch.zeros_like(x) for x in g0]
-        for _ in range(fed.done_richardson_iters):
-            hd = hvp(d)
-            d = [dd + per_client(alpha, dd) * ((gg - hh)
-                                               - fed.done_damping * dd)
-                 for dd, gg, hh in zip(d, g0, hd)]
-        cap = torch.clamp(10.0 * gn / (norm(d) + 1e-12), max=1.0)
-        step = lr * cap
-        new = {k: (params[k].detach() - per_client(step, dd) * dd)
-               for k, dd in zip(keys, d)}
-        return pack(new, spec), loss.detach()
+        # the products' backwards run on the autograd engine's thread:
+        # this range's device extent, from its first kernel launched here
+        # to its last, holds them
+        with annotate(LOSS_GRAD):
+            gn = norm(g0)
+            v = [x / per_client(gn + 1e-12, x) for x in g0]
+            for _ in range(5):
+                hv = hvp(v)
+                nrm = norm(hv) + 1e-12
+                v = [x / per_client(nrm, x) for x in hv]
+            alpha = 0.9 / (nrm + fed.done_damping)
+            d = [torch.zeros_like(x) for x in g0]
+            for _ in range(fed.done_richardson_iters):
+                hd = hvp(d)
+                d = [dd + per_client(alpha, dd) * ((gg - hh)
+                                                   - fed.done_damping * dd)
+                     for dd, gg, hh in zip(d, g0, hd)]
+            cap = torch.clamp(10.0 * gn / (norm(d) + 1e-12), max=1.0)
+        with annotate(OPTIMIZER):
+            step = lr * cap
+            new = {k: (params[k].detach() - per_client(step, dd) * dd)
+                   for k, dd in zip(keys, d)}
+        with annotate(PACK):
+            return pack(new, spec), loss
 
     # ----------------------------------------------------- the server step
+    def _server_apply(self, state, agg_flat, spec, packed):
+        """A round's server step on its fp32 aggregate ``agg_flat``: into
+        the resident buffers of packed state, else on the params dict."""
+        if packed:
+            return self._apply_aggregate_flat(state, agg_flat, in_place=True)
+        with annotate(PACK):
+            agg = unpack(agg_flat, spec)
+        return self._apply_aggregate(state, agg)
+
     def _apply_aggregate(self, state, agg):
         """The server step on the aggregated params dict ``agg``: FedOpt
         applies Adam / Yogi to the pseudo-gradient, everything else
         takes ``agg`` as the new model."""
         if self.fed.optimizer in FEDOPT:
-            return self._server_opt_update(state, agg)
+            with annotate(AGGREGATE):
+                return self._server_opt_update(state, agg)
         return {**state, "params": agg}
 
     def _model_out(self, state):
@@ -1193,13 +1272,15 @@ class FedEngine:
         already the params buffer where `_model_out` gave it; else (the
         scheduler's apply, whose in-flight clients read the old model)
         into new buffers."""
-        if self.fed.optimizer in FEDOPT:
-            return self._server_opt_update_flat(state, agg_flat, in_place)
-        if in_place:
-            store_into(state["params"], agg_flat)
-            return state
-        return {**state,
-                "params": store_as(agg_flat, state["params"].dtype)}
+        with annotate(AGGREGATE):
+            if self.fed.optimizer in FEDOPT:
+                return self._server_opt_update_flat(state, agg_flat,
+                                                    in_place)
+            if in_place:
+                store_into(state["params"], agg_flat)
+                return state
+            return {**state,
+                    "params": store_as(agg_flat, state["params"].dtype)}
 
     def _server_step(self, p, m0, v0, agg, out=(None, None, None)):
         """Adam / Yogi over one fp32 buffer, the JAX operation order:

@@ -14,6 +14,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.obs.spans import GNB, annotate, spanned
+
 
 def gnb_estimate(task, params: Dict[str, torch.Tensor], batch,
                  gumbel: torch.Tensor,
@@ -25,19 +27,52 @@ def gnb_estimate(task, params: Dict[str, torch.Tensor], batch,
     batch.
 
     ``microbatches`` n > 1 takes g_hat as the JAX engine's micro-batched
-    ``value_and_grad`` does (`FedEngine._value_and_grad`): the batch
+    ``value_and_grad`` does (`value_and_grads`): the batch
     axis split into n equal consecutive slices, ``sum_i g_i / n`` in
     order; micro-batch i reads the i-th slice of ``gumbel``'s batch axis
-    (its draws laid out micro-batch by micro-batch)."""
+    (its draws laid out micro-batch by micro-batch).  It runs inside the
+    profiler range `repro_torch.obs.spans.GNB`, its backward too."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    keys = list(leaves)
-    g_hat = None
-    for mb in microbatch_slices({**batch, "gumbel": gumbel}, microbatches):
-        loss = task.sampled_loss(leaves, mb, mb["gumbel"])
-        g = leaf_grads(loss.sum(), [leaves[k] for k in keys])
-        g_hat = accumulate(g_hat, g, microbatches)
+    _, g_hat = value_and_grads(
+        lambda p, mb: task.sampled_loss(p, mb, mb["gumbel"]), leaves,
+        {**batch, "gumbel": gumbel}, microbatches, GNB)
     B = task.gnb_batch_size(batch)
-    return {k: B * g * g for k, g in zip(keys, g_hat)}
+    with annotate(GNB):
+        return {k: B * g * g for k, g in zip(leaves, g_hat)}
+
+
+def value_and_grads(loss_fn, leaves: Dict[str, torch.Tensor], batch,
+                    microbatches: int, span: str,
+                    create_graph: bool = False):
+    """``(loss, grads)``: the per-client losses ``loss_fn(leaves, mb)``
+    and the grads of their sum (`leaf_grads`, in ``leaves``' order),
+    over the n consecutive slices of the batch (`microbatch_slices`)
+    as ``sum_i loss_i / n`` and ``sum_i g_i / n`` in order (the JAX
+    engine's micro-batched ``value_and_grad``; the whole batch for n <=
+    1).  Each forward, and the backward it starts, runs inside the
+    profiler range ``span`` (`repro_torch.obs.spans.spanned`), and so
+    do the sums; the backward's seed and zero-filled grads fall outside
+    it."""
+    keys = list(leaves)
+    xs = [leaves[k] for k in keys]
+    n = microbatches
+    loss = grads = None
+    for mb in microbatch_slices(batch, n):
+        loss_i, total = spanned(
+            span, lambda *ls: _with_sum(loss_fn(dict(zip(keys, ls)), mb)),
+            xs)
+        g = leaf_grads(total, xs, create_graph)
+        loss_i = loss_i.detach()
+        if n <= 1:
+            return loss_i, g
+        with annotate(span):
+            loss = loss_i / n if loss is None else loss + loss_i / n
+            grads = accumulate(grads, g, n)
+    return loss, grads
+
+
+def _with_sum(loss: torch.Tensor):
+    return loss, loss.sum()
 
 
 def leaf_grads(loss: torch.Tensor, leaves, create_graph: bool = False):

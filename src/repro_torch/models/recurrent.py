@@ -31,7 +31,8 @@ scalar; the sigmoids and GeLUs are `layers`' JAX forms.
 
 Each mixer's full-sequence recurrence runs inside a
 `torch.profiler.record_function` range (`RGLRU_SPAN`, `MLSTM_SPAN`,
-`SLSTM_SPAN`), forward and backward (`_spanned`), so a profile reads
+`SLSTM_SPAN`), forward and backward
+(`repro_torch.obs.spans.spanned`), so a profile reads
 each scan's share of a round; a decode step's one update runs outside
 them.
 """
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.obs.spans import spanned
 
 Params = L.Params
 
@@ -58,50 +60,6 @@ MLSTM_CHUNK = 128
 RGLRU_SPAN = "rglru_scan"
 MLSTM_SPAN = "mlstm_chunk_scan"
 SLSTM_SPAN = "slstm_scan"
-
-
-# --------------------------------------------------------------------------
-# profiler ranges over a scan, forward and backward
-# --------------------------------------------------------------------------
-
-def _spanned(name: str, fn: Callable, inputs: Sequence[torch.Tensor]):
-    """``fn(*inputs)`` inside the range ``name``, and its backward too:
-    tensor hooks open the range when the grad of ``fn``'s output
-    arrives and close it when the last of ``inputs``' grads is made
-    (the backward runs every node of the scan between the two, as each
-    has a later sequence number than any node before the scan).  Each
-    backward pass opens and closes it once."""
-    with torch.profiler.record_function(name):
-        out = fn(*inputs)
-    outs = out if isinstance(out, tuple) else (out,)
-    ins = [t for t in inputs if t.requires_grad]
-    if not (torch.is_grad_enabled() and ins
-            and any(o.requires_grad for o in outs)):
-        return out
-    # the hooks hold no tensor: a hook is kept by its tensor's autograd
-    # node, so a tensor in a hook's closure would never be freed
-    n_in = len(ins)
-    state = {"range": None, "left": n_in}
-
-    def opened(grad):
-        if state["range"] is None:
-            state["range"] = torch.profiler.record_function(name)
-            state["range"].__enter__()
-
-    def closed(grad):
-        state["left"] -= 1
-        if state["left"] == 0:
-            state["left"] = n_in
-            if state["range"] is not None:
-                state["range"].__exit__(None, None, None)
-                state["range"] = None
-
-    for o in outs:
-        if o.requires_grad:
-            o.register_hook(opened)
-    for t in ins:
-        t.register_hook(closed)
-    return out
 
 
 # --------------------------------------------------------------------------
@@ -267,7 +225,7 @@ def rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                             None if cache is None else cache["conv"])
     log_a, scaled = _rglru_gates(p, u)
     if cache is None:
-        h = _spanned(RGLRU_SPAN, _lru_scan, (torch.exp(log_a), scaled))
+        h = spanned(RGLRU_SPAN, _lru_scan, (torch.exp(log_a), scaled))
     else:
         h = torch.exp(log_a) * cache["state"][..., None, :] + scaled
     out = L.matmul(h.to(x.dtype) * gate, p["w_out"])
@@ -445,7 +403,7 @@ def mlstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     lf = log_sigmoid(gates[..., H:]).transpose(-1, -2)
     if cache is None:
         cdt = getattr(torch, cfg.scan_compute_dtype)
-        h, *state = _spanned(
+        h, *state = spanned(
             MLSTM_SPAN, lambda *a: _flat(_mlstm_chunk_scan(*a, cdt=cdt)),
             (q, k, v, li, lf))
     else:
@@ -460,7 +418,7 @@ def mlstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _flat(out):
-    """``(h, (C, n, m))`` as ``(h, C, n, m)`` (`_spanned` takes a flat
+    """``(h, (C, n, m))`` as ``(h, C, n, m)`` (`spanned` takes a flat
     tuple)."""
     h, state = out
     return (h,) + tuple(state)
@@ -571,7 +529,7 @@ def slstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         tuple(lead) + (H, dh, 4 * dh))
     names = ("h", "c", "n", "m")
     if cache is None:
-        hs, *carry = _spanned(SLSTM_SPAN, _slstm_scan, (wx, rg4))
+        hs, *carry = spanned(SLSTM_SPAN, _slstm_scan, (wx, rg4))
     else:
         # the cache's (B, H, dh) as the steps' (H, B, dh)
         hs, *carry = _slstm_scan(wx, rg4, *(cache[k].transpose(-3, -2)
