@@ -9,20 +9,21 @@ with the distance of its h buffer to the band; then that check again
 with the CPU side on one thread and the card's deterministic algorithms
 (turns B, A).
 
-    python3 ab_rounds.py CHECKOUT_A [CHECKOUT_B]
+    python3 ab_rounds.py [--mlp] CHECKOUT_A [CHECKOUT_B]
 
 CHECKOUT_B defaults to the checkout that holds this script.  Each turn is
 a process of its own, started in the checkout, that imports the
 checkout's own ``chip_smoke.py`` and package and builds its kernels:
 ``chip_smoke.time_kernels`` for the host milliseconds (its ``host ...
 ms per call``), `drive` of the MLP-128 main path for `MLP_ROUNDS`
-rounds, each phase of `LM_AB` with `LM_ROUNDS` rounds (remat off through
+rounds and of its sequential strategy for `MLP_SEQ_ROUNDS`, each phase of `LM_AB` with `LM_ROUNDS` rounds (remat off through
 the trainer's ``cfg`` hook), and `lm_small_case` of `SMALL_CASE`
 `SMALL_REPEATS` times.  Every check keeps its band: a run
 that falls outside it is recorded as a failure with its message, and the
 run goes on.  Prints one table per measurement, the card's name and power
 limit, and writes every turn's record to ``chiprun_out/ab_rounds.json``.
-Exits nonzero without a card or if a turn fails.
+``--mlp`` runs the MLP-128 rounds alone, in the same four turns.  Exits
+nonzero without a card or if a turn fails.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 MLP_ROUNDS = 12
+MLP_SEQ_ROUNDS = 4
 LM_ROUNDS = 5
 #: the LM phases timed with remat on and off: minicpm-2b x 2 (C=4) and
 #: hubert-xlarge x 48 (C=2, int8), the deepest stack
@@ -139,7 +141,7 @@ def turn_main(mode: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c.build.build_all()
-    rec = {"mode": mode, "checkout": os.getcwd()}
+    rec = {"mode": mode, "checkout": os.getcwd(), "host_ms": {}, "lm": {}}
     if mode == "det":
         torch.set_num_threads(1)
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -151,27 +153,38 @@ def turn_main(mode: str) -> None:
         print(MARK + json.dumps(rec), flush=True)
         return
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        c.time_kernels(device)
-    line = re.compile(r"^(.*?) \(([0-9, ]+)\) fp32: device kernel .*"
-                      r"host ([0-9.e+-]+) ms per call")
-    rec["host_ms"] = {f"{m[1]} ({m[2]})": float(m[3])
-                      for m in map(line.match, buf.getvalue().splitlines())
-                      if m}
+    if mode == "timed":
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            c.time_kernels(device)
+        line = re.compile(r"^(.*?) \(([0-9, ]+)\) fp32: device kernel .*"
+                          r"host ([0-9.e+-]+) ms per call")
+        rec["host_ms"] = {f"{m[1]} ({m[2]})": float(m[3]) for m in
+                          map(line.match, buf.getvalue().splitlines()) if m}
 
     data = c.make_data(device)
     mlp = c.MLPTask(hidden=c.mlp_mnist.HIDDEN)
-    fed = c.FedConfig(strategy="parallel", num_clients=c.CLIENTS,
-                      local_iters=c.LOCAL_ITERS, tau=c.TAU, lr=c.SOPHIA_LR,
-                      optimizer="fed_sophia")
-    with contextlib.redirect_stdout(io.StringIO()):
-        *_, secs = c.drive("mlp", mlp, fed, data, MLP_ROUNDS, device,
-                           c.expect(sophia_update_batched=MLP_ROUNDS
-                                    * c.LOCAL_ITERS))
-    rec["mlp_s"] = secs
-    rec["mlp_steady_s"] = sum(secs[1:]) / len(secs[1:])
+    leafy = "sophia_update_leaves" in c.REPLACES
+    for strategy, rounds, clients in (("parallel", MLP_ROUNDS, 1),
+                                      ("sequential", MLP_SEQ_ROUNDS,
+                                       c.CLIENTS)):
+        fed = c.FedConfig(strategy=strategy, num_clients=c.CLIENTS,
+                          local_iters=c.LOCAL_ITERS, tau=c.TAU,
+                          lr=c.SOPHIA_LR, optimizer="fed_sophia")
+        # each checkout's own Sophia entry: the leaf route where it has one
+        entry = ("sophia_update_leaves" if leafy else "sophia_update_"
+                 + ("batched" if strategy == "parallel" else "flat"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            *_, secs = c.drive("mlp", mlp, fed, data, rounds, device,
+                               c.expect(**{entry: rounds * clients
+                                           * c.LOCAL_ITERS}))
+        key = "mlp" if strategy == "parallel" else "mlp_seq"
+        rec[key + "_s"] = secs
+        rec[key + "_steady_s"] = sum(secs[1:]) / len(secs[1:])
     del data
+    if mode == "mlp":
+        print(MARK + json.dumps(rec), flush=True)
+        return
 
     c.LM_ROUNDS = LM_ROUNDS
     rec["lm"] = {}
@@ -207,28 +220,31 @@ def main() -> None:
         return
     if not torch.cuda.is_available():
         raise SystemExit("ab_rounds: needs an NVIDIA card")
-    paths = [Path(a).resolve() for a in args]
+    mlp_only = args[:1] == ["--mlp"]
+    paths = [Path(a).resolve() for a in args[mlp_only:]]
     if len(paths) == 1:
         paths.append(HERE)
     names = "AB"
-    order = [(0, "timed"), (1, "timed"), (1, "timed"), (0, "timed"),
-             (1, "det"), (0, "det")]
+    mode = "mlp" if mlp_only else "timed"
+    order = [(0, mode), (1, mode), (1, mode), (0, mode)] + (
+        [] if mlp_only else [(1, "det"), (0, "det")])
     turns = []
-    for j, mode in order:
-        rec = run_turn(paths[j], mode)
+    for j, turn_mode in order:
+        rec = run_turn(paths[j], turn_mode)
         rec["name"] = names[j]
         turns.append(rec)
-        print(f"turn {names[j]} {mode} done", flush=True)
+        print(f"turn {names[j]} {turn_mode} done", flush=True)
     for name, path in zip(names, paths):
         print(f"{name} = {path}")
-    timed = [t for t in turns if t["mode"] == "timed"]
+    timed = [t for t in turns if t["mode"] == mode]
     labels = list(dict.fromkeys(k for t in timed for k in t["host_ms"]))
     print("host ms per call | " + " | ".join(t["name"] for t in timed))
     for k in labels:
         print(f"{k} | " + " | ".join(
             str(t["host_ms"].get(k, "-")) for t in timed))
-    print("mlp_steady_s | " + " | ".join(f"{t['name']} {t['mlp_steady_s']}"
-                                         for t in timed))
+    for key in ("mlp_steady_s", "mlp_seq_steady_s"):
+        print(f"{key} | " + " | ".join(f"{t['name']} {t[key]}"
+                                       for t in timed))
     runs = list(dict.fromkeys(k for t in timed for k in t["lm"]))
     print("LM phase | " + " | ".join(t["name"] for t in timed)
           + " (steady s, busy share, peak bytes)")
@@ -238,7 +254,7 @@ def main() -> None:
             f"{t['lm'][k]['steady_s']}, {t['lm'][k]['busy']}, "
             f"{t['lm'][k]['peak']}" for t in timed))
     for t in turns:
-        for i, run in enumerate(t["small"]):
+        for i, run in enumerate(t.get("small", ())):
             print(f"{SMALL_CASE} {t['name']} {t['mode']} run {i}: "
                   + "; ".join(
                       f"run check failed: {x['run']}" if "run" in x else

@@ -64,8 +64,9 @@ deepseek also parallel, with the MoE routing compared choice by choice;
 minicpm-2b at bidir int8/int8/int4, int8 with EF, top-k and SignSGD with
 the majority vote; recurrentgemma-2b at 3 and 5 layers, xlstm-1.3b with
 and without its FFN; since slice 14 qwen2-vl-2b and hubert-xlarge on
-embeds) and times rows 1, 2, 4 and 5 at the LM slices' shapes
-(`time_lm_kernels`, the ``lm_kernels`` line).  Slice 14 trains the
+embeds) and checks and times the leaf-boundary form (row 2b) and rows 4
+and 5 at the LM slices' shapes (`time_lm_kernels`, the ``lm_kernels``
+line).  Slice 14 trains the
 embedding-input archs at their published widths, parallel, int8:
 hubert-xlarge, a bidirectional encoder, at its full 48 layers, 2 clients
 (`lm_enc`), and qwen2-vl-2b with M-RoPE cut to 2 layers, 4 clients
@@ -102,7 +103,7 @@ Any failure ends the run with a nonzero exit; nothing is caught.
 Without a card it exits nonzero before printing any result.
 
 The narrow forms of rows 2, 5 and 9 that the resident dtype policy runs are
-timed beside the fifteen and printed as a ``{"narrow_kernels": [...]}``
+timed beside the sixteen and printed as a ``{"narrow_kernels": [...]}``
 line.  The second-to-last line of standard output is the ``{"kernels":
 [...]}`` record; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -248,6 +249,9 @@ STEPS_OF = {"params": ("uplink", "downlink", "clip"),
 REPLACES = {
     "sophia_update_batched": "src/repro/kernels/sophia_update.py:100",
     "sophia_update_flat": "src/repro/kernels/sophia_update.py:57",
+    # the round engine's step at the loss/grad boundary: row 2 (row 1
+    # for one client) with the pack and unpack around it
+    "sophia_update_leaves": "src/repro/kernels/sophia_update.py:100",
     "quant_roundtrip_flat": "src/repro/kernels/quantize.py:93",
     "quant_roundtrip_batched": "src/repro/kernels/quantize.py:261",
     "uplink_roundtrip_flat": "src/repro/kernels/quantize.py:177",
@@ -437,7 +441,86 @@ def check_kernels(device):
     print(f"  every dtype combination but all-fp32 ({len(combos)}, flat and "
           "batched in turn, 1 in 5 in place) runtime-dtype form, bitwise "
           "equal")
+    err["sophia_update_leaves"] = check_leaf_boundary(device)
     return err
+
+
+def leaf_inputs(device, seed, tree, lead, swap=()):
+    """The leaf-boundary form's operands over the parameter dict
+    ``tree`` (its keys, shapes and dtypes) for ``lead`` clients: the
+    spec, fp32 theta, m, h (zero past the leaves, every 17th h 0), the
+    grads and h_hat leaves (``swap``'s keys stored with their last two
+    axes swapped) and the zero h_hat buffer."""
+    rs = np.random.default_rng(seed)
+    spec = tflat.flat_spec(tree, cols=1024)
+
+    def leaves(scale, positive, swapped):
+        out = {}
+        for k, v in tree.items():
+            x = scale * rs.standard_normal(lead + tuple(v.shape))
+            x = torch.tensor(np.abs(x) if positive else x,
+                             dtype=torch.float32, device=device).to(v.dtype)
+            if k in swapped:
+                x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+            out[k] = x
+        return out
+    state = []
+    for scale in (1.0, 0.1, 0.01):
+        x = scale * rs.standard_normal(lead + (spec.padded,))
+        x[..., spec.total:] = 0.0
+        state.append(torch.tensor(x.reshape(lead + (spec.rows, spec.cols)),
+                                  dtype=torch.float32, device=device))
+    state[2] = state[2].abs()
+    state[2].reshape(-1)[::17] = 0.0
+    return (spec, *state, leaves(0.5, False, swap),
+            leaves(0.02, True, swap), torch.zeros_like(state[0]))
+
+
+def check_leaf_boundary(device) -> float:
+    """The leaf-boundary form (the round engine's step at the loss/grad
+    boundary) against its plain version, bitwise: MLP-128's fp32 leaves
+    for the cohort and one client (no params store: they are views of
+    theta), and an LM-like bf16 tree with a tied embedding's swapped
+    grad, a plain step and a refresh, with and without the store."""
+    mlp = MLPTask(hidden=mlp_mnist.HIDDEN).init(gen(device, SEED), device)
+    bf = torch.bfloat16
+    lm = {"blocks_0/w": torch.empty(2, 96, 2304, dtype=bf),
+          "embed": torch.empty(1000, 2304, dtype=bf),
+          "final_norm": torch.empty(2304, dtype=bf)}
+    worst = 0.0
+    cases = [("MLP-128 cohort", mlp, (CLIENTS,), (), (0, 1), False),
+             ("MLP-128 one client", mlp, (), (), (1,), False),
+             ("LM-like bf16 cohort", lm, (4,), ("embed",), (0, 1), True),
+             ("LM-like bf16 one client", lm, (), ("embed",), (1,), True)]
+    for i, (label, tree, lead, swap, do_hs, stored) in enumerate(cases):
+        spec, th, m, h, g, hh, zero = leaf_inputs(device, SEED + 60 + i,
+                                                  tree, lead, swap)
+        for do_h in do_hs:
+            for store in ((True, False) if stored else (False,)):
+                h_hat = hh if do_h else zero
+                out = ({k: torch.full(lead + tuple(v.shape), float("nan"),
+                                      dtype=v.dtype, device=device)
+                        for k, v in tree.items()} if store else None)
+                want = kref.sophia_update_leaves_ref(
+                    th, m, h, g, h_hat, float(do_h), spec=spec,
+                    out_dtypes={k: v.dtype for k, v in (out or {}).items()},
+                    lr=LR, **HP)
+                got = [x.clone() for x in (th, m, h)]
+                before = tk.STEPS["sophia_update_leaves"]
+                tk.sophia_update_leaves(*got, g, h_hat, do_h, LR, spec=spec,
+                                        out=out, **HP)
+                sync()
+                if tk.STEPS["sophia_update_leaves"] != before + 1:
+                    raise SystemExit(f"kernel check {label}: the leaf-"
+                                     "boundary form did not launch")
+                name = f"{label} do_h={do_h} store={store}"
+                worst = max(worst, same_bits(name, "sophia_update_leaves",
+                                             tuple(got), want[:3]))
+                for k in (out or {}):
+                    same_bits(f"{name} {k}", "sophia_update_leaves", out[k],
+                              want[3][k])
+                print(f"  leaf boundary {name:44s} bitwise equal")
+    return worst
 
 
 def quant_inputs(shape, device, seed, store=torch.float32, shared=True,
@@ -1258,7 +1341,7 @@ def main_path(device):
     label = "fed_sophia parallel MLP-128"
     engine, state, losses, secs = drive(
         label, mlp, sophia, data, MLP_ROUNDS, device,
-        expect(sophia_update_batched=MLP_ROUNDS * LOCAL_ITERS))
+        expect(sophia_update_leaves=MLP_ROUNDS * LOCAL_ITERS))
     record(label, secs)
     packed = tuple(state["client_opt"].m.shape[1:])
     if engine.num_params(state) != MLP_PARAMS or packed != MLP_PACKED:
@@ -1282,14 +1365,14 @@ def main_path(device):
     _, _, _, secs = drive(label, mlp,
                           FedConfig(strategy="sequential", **base), data, 1,
                           device,
-                          expect(sophia_update_flat=CLIENTS * LOCAL_ITERS))
+                          expect(sophia_update_leaves=CLIENTS * LOCAL_ITERS))
     record(label, secs)
 
     cnn = CNNTask(channels=cnn_mnist.CHANNELS)
     label = "fed_sophia parallel CNN-(16,32)"
     engine, state, _, secs = drive(
         label, cnn, sophia, data, CNN_ROUNDS, device,
-        expect(sophia_update_batched=CNN_ROUNDS * LOCAL_ITERS))
+        expect(sophia_update_leaves=CNN_ROUNDS * LOCAL_ITERS))
     record(label, secs)
     packed = tuple(state["client_opt"].m.shape[1:])
     if engine.num_params(state) != CNN_PARAMS or packed != CNN_PACKED:
@@ -1303,16 +1386,16 @@ def main_path(device):
                  hessian_compressor="int4", participation=0.5)
     phases = [  # (label, strategy, CommConfig kwargs, rounds, launches)
         ("uplink-int8", "parallel", dict(compressor="int8"), R,
-         expect(sophia_update_batched=J * R, quant_roundtrip_batched=R)),
+         expect(sophia_update_leaves=J * R, quant_roundtrip_batched=R)),
         ("uplink-int8-ef", "parallel",
          dict(compressor="int8", error_feedback=True), R,
-         expect(sophia_update_batched=J * R, uplink_roundtrip_batched=R)),
+         expect(sophia_update_leaves=J * R, uplink_roundtrip_batched=R)),
         ("bidir-int8", "parallel", bidir, R,
-         expect(broadcast_roundtrip_batched=R, sophia_update_batched=J * R,
+         expect(broadcast_roundtrip_batched=R, sophia_update_leaves=J * R,
                 quant_roundtrip_batched=2 * R, quant_roundtrip_flat=R)),
         ("bidir-int8-ef sequential", "sequential",
          dict(bidir, error_feedback=True), 1,
-         expect(broadcast_roundtrip_flat=S, sophia_update_flat=S * J,
+         expect(broadcast_roundtrip_flat=S, sophia_update_leaves=S * J,
                 uplink_roundtrip_flat=S, quant_roundtrip_flat=S + 1)),
     ]
     # the biased compressors, as the JAX package's comm benchmark runs
@@ -1320,18 +1403,18 @@ def main_path(device):
     phases += [
         ("uplink-topk", "parallel",
          dict(compressor="topk", topk_ratio=TOPK_RATIO), R,
-         expect(sophia_update_batched=J * R, topk_threshold_batched=R)),
+         expect(sophia_update_leaves=J * R, topk_threshold_batched=R)),
         ("uplink-signsgd-majority", "parallel",
          dict(compressor="signsgd", sign_majority=True), R,
-         expect(sophia_update_batched=J * R, sign_roundtrip_batched=R)),
+         expect(sophia_update_leaves=J * R, sign_roundtrip_batched=R)),
         ("bidir-sign-topk-int4", "parallel", BIASED_BIDIR, R,
          expect(sign_roundtrip_batched=R, topk_threshold_batched=R,
                 quant_roundtrip_batched=R, quant_roundtrip_flat=R,
-                sophia_update_batched=J * R)),
+                sophia_update_leaves=J * R)),
         ("bidir-sign-topk-int4 sequential", "sequential", BIASED_BIDIR,
          1,
          expect(sign_roundtrip_flat=S, topk_threshold_flat=S,
-                quant_roundtrip_flat=S + 1, sophia_update_flat=S * J)),
+                quant_roundtrip_flat=S + 1, sophia_update_leaves=S * J)),
     ]
     # launches of the uplink, broadcast, sign and threshold kernels' fp32
     # forms: every one of them
@@ -1368,14 +1451,14 @@ def main_path(device):
     sched_phases = [  # (label, SchedConfig, RobustConfig, events, launches)
         ("sched-sync-int8", SchedConfig(discipline="sync", **STRAGGLER),
          RobustConfig(), E["sync"],
-         expect(sophia_update_batched=J * E["sync"],
+         expect(sophia_update_leaves=J * E["sync"],
                 quant_roundtrip_batched=E["sync"])),
         # one K=16 stale accumulate per event; the cohort of 32 goes out
         # at version 0, 16 clients after every event but the last
         ("sched-semisync-int8",
          SchedConfig(discipline="semisync", buffer_size=S, **STRAGGLER),
          RobustConfig(), E["semisync"],
-         expect(sophia_update_batched=J * E["semisync"],
+         expect(sophia_update_leaves=J * E["semisync"],
                 quant_roundtrip_batched=E["semisync"],
                 stale_accum_flat=E["semisync"])),
         # the same in chunks of 8: 4 chunks at version 0, 2 per redispatch
@@ -1383,14 +1466,14 @@ def main_path(device):
          SchedConfig(discipline="semisync", buffer_size=S, dispatch_chunk=8,
                      **STRAGGLER),
          RobustConfig(), E["chunk8"],
-         expect(sophia_update_batched=J * chunked,
+         expect(sophia_update_leaves=J * chunked,
                 quant_roundtrip_batched=chunked,
                 stale_accum_flat=E["chunk8"])),
         # one N=1 dispatch and one K=1 accumulate per event
         ("sched-async-int8",
          SchedConfig(discipline="async", staleness_power=0.5, **STRAGGLER),
          RobustConfig(), E["async"],
-         expect(sophia_update_batched=J * E["async"],
+         expect(sophia_update_leaves=J * E["async"],
                 quant_roundtrip_batched=E["async"],
                 stale_accum_flat=E["async"])),
         # the scale attack under norm-clip: one K=16 robust combine (trim
@@ -1401,7 +1484,7 @@ def main_path(device):
          SchedConfig(discipline="semisync", buffer_size=S, **STRAGGLER),
          RobustConfig(aggregator="norm_clip", clip_norm=CLIP_NORM,
                       attack="scale", seed=1, **BYZ), E["normclip"],
-         expect(sophia_update_batched=J * E["normclip"],
+         expect(sophia_update_leaves=J * E["normclip"],
                 quant_roundtrip_batched=E["normclip"],
                 robust_agg_flat=E["normclip"])),
     ]
@@ -1429,17 +1512,17 @@ def main_path(device):
                           **BYZ)
     robust_phases = [  # (label, strategy, comm, robust, rounds, launches)
         ("robust-direct-trimmed", "parallel", CommConfig(), trimmed, RR,
-         expect(sophia_update_batched=J * RR, robust_agg_flat=RR)),
+         expect(sophia_update_leaves=J * RR, robust_agg_flat=RR)),
         ("robust-direct-median", "parallel", CommConfig(), median, RR,
-         expect(sophia_update_batched=J * RR, robust_agg_flat=RR)),
+         expect(sophia_update_leaves=J * RR, robust_agg_flat=RR)),
         ("robust-direct-median sequential", "sequential", CommConfig(),
          median, 1,
-         expect(sophia_update_flat=CLIENTS * J, robust_agg_flat=1)),
+         expect(sophia_update_leaves=CLIENTS * J, robust_agg_flat=1)),
         ("robust-comm-int8-randomwire", "parallel",
          CommConfig(compressor="int8", participation=0.5),
          RobustConfig(aggregator="trimmed_mean", trim_fraction=0.25,
                       attack="random_wire", **BYZ), RR,
-         expect(sophia_update_batched=J * RR, quant_roundtrip_batched=RR,
+         expect(sophia_update_leaves=J * RR, quant_roundtrip_batched=RR,
                 robust_agg_flat=RR)),
     ]
     for label, strategy, comm, robust, rounds, want in robust_phases:
@@ -1628,9 +1711,11 @@ def settings_phases(device, data, mlp, base, record):
         ("done", dict(base, **DONE), 2, False, expect(), {}),
         ("done-seq", dict(base, strategy="sequential", **DONE), 1, False,
          expect(), {}),
+        # the leaf route; MLP-128's w1 lies at an odd offset (266), so
+        # no launch has every leaf on the vector accesses
         ("microbatch2", dict(base, grad_microbatches=2), R, False,
-         expect(sophia_update_batched=J * R),
-         {"sophia_update_batched": J * R}),
+         expect(sophia_update_leaves=J * R),
+         {"sophia_update_leaves": 0}),
         ("bf16-packed", dict(base, comm=CommConfig(**BF16_STATE)), R, True,
          expect(sophia_update_batched=J * R), {"sophia_update_batched": 0}),
         ("fp8-int8-packed", dict(base, comm=CommConfig(**int8, **FP8_STATE)),
@@ -1704,7 +1789,7 @@ def settings_phases(device, data, mlp, base, record):
     # bitwise its unprobed twin's, its launches the twin's
     probed = dict(base, strategy="parallel", obs=ObsConfig(probes=True))
     label = "probes"
-    want = expect(sophia_update_batched=J * 2)
+    want = expect(sophia_update_leaves=J * 2)
     _, state, losses, secs = drive(label, mlp, FedConfig(**probed), data, 2,
                                    device, want)
     record(label, secs)
@@ -1716,7 +1801,7 @@ def settings_phases(device, data, mlp, base, record):
     same_state_bits(label, state, twin)
     E = SCHED_EVENTS["semisync"]
     semisync = SchedConfig(discipline="semisync", buffer_size=S, **STRAGGLER)
-    want = expect(sophia_update_batched=J * E, quant_roundtrip_batched=E,
+    want = expect(sophia_update_leaves=J * E, quant_roundtrip_batched=E,
                   stale_accum_flat=E)
     label = "sched-semisync-int8 probes"
     secs, losses, state, trace = drive_sched(
@@ -2590,6 +2675,22 @@ def time_kernels(device):
             [x[0] for x in ins], [x[0] for x in ins[:3]], SOPHIA_OPS),
     }
     del ins
+    # the leaf-boundary form over MLP-128's cohort: fp32 grad leaves, the
+    # zero h_hat buffer, no params store (fp32 leaves are views of theta)
+    mlp = MLPTask(hidden=mlp_mnist.HIDDEN).init(gen(device, SEED), device)
+    spec, th, m, h, g, _, zero = leaf_inputs(device, SEED + 97, mlp, (N,))
+    out["sophia_update_leaves"] = time_pair(
+        "sophia_update_leaves",
+        lambda i: tk.sophia_update_leaves(th, m, h, g, zero, 1, lr,
+                                          spec=spec, **HP),
+        lambda i: kref.sophia_update_leaves_ref(th, m, h, g, zero, 1.0,
+                                                spec=spec, out_dtypes={},
+                                                lr=lr, **HP),
+        [th, m, h, *g.values(), zero], [th, m, h], SOPHIA_OPS,
+        # the plain version's pack and ops take about 1 ms of host time
+        # a call: 50 calls outlast the sleep that holds a chunk back
+        plain_chunk=10, kernel_chunk=10)
+    del th, m, h, g, zero
     q = 127
     th, sv, ef, u, s = quant_inputs((N, R, C), device, SEED + 98,
                                     shared=True, qmax=q)
@@ -2939,36 +3040,36 @@ VLM_CLIENTS = 4
 #: round-trip over the cohort's deltas (row 5) or one a client (row 4)
 LM_PHASES = {
     "lm_train": (LM_ARCH, LM_LAYERS, LM_PARAMS, LM_PACKED, LM_CLIENTS, (),
-                 lambda r: expect(sophia_update_batched=r * LM_ITERS)),
+                 lambda r: expect(sophia_update_leaves=r * LM_ITERS)),
     "lm_comm": (LM_ARCH, LM_LAYERS, LM_PARAMS, LM_PACKED, LM_CLIENTS,
                 ("--compressor", "int8"),
-                lambda r: expect(sophia_update_batched=r * LM_ITERS,
+                lambda r: expect(sophia_update_leaves=r * LM_ITERS,
                                  quant_roundtrip_batched=r)),
     "lm_seq": (SEQ_ARCH, LM_LAYERS, SEQ_PARAMS, SEQ_PACKED, SEQ_CLIENTS,
                ("--compressor", "int8"),
                lambda r: expect(
-                   sophia_update_flat=r * SEQ_CLIENTS * LM_ITERS,
+                   sophia_update_leaves=r * SEQ_CLIENTS * LM_ITERS,
                    quant_roundtrip_flat=r * SEQ_CLIENTS)),
     "lm_moe": (MOE_ARCH, LM_LAYERS, MOE_PARAMS, MOE_PACKED, MOE_CLIENTS,
                ("--compressor", "int8"),
                lambda r: expect(
-                   sophia_update_flat=r * MOE_CLIENTS * LM_ITERS,
+                   sophia_update_leaves=r * MOE_CLIENTS * LM_ITERS,
                    quant_roundtrip_flat=r * MOE_CLIENTS)),
     "lm_rec": (REC_ARCH, REC_LAYERS, REC_PARAMS, REC_PACKED, REC_CLIENTS,
                ("--compressor", "int8"),
-               lambda r: expect(sophia_update_batched=r * LM_ITERS,
+               lambda r: expect(sophia_update_leaves=r * LM_ITERS,
                                 quant_roundtrip_batched=r)),
     "lm_xlstm": (XLSTM_ARCH, XLSTM_LAYERS, XLSTM_PARAMS, XLSTM_PACKED,
                  REC_CLIENTS, ("--compressor", "int8"),
-                 lambda r: expect(sophia_update_batched=r * LM_ITERS,
+                 lambda r: expect(sophia_update_leaves=r * LM_ITERS,
                                   quant_roundtrip_batched=r)),
     "lm_enc": (ENC_ARCH, ENC_LAYERS, ENC_PARAMS, ENC_PACKED, REC_CLIENTS,
                ("--compressor", "int8"),
-               lambda r: expect(sophia_update_batched=r * LM_ITERS,
+               lambda r: expect(sophia_update_leaves=r * LM_ITERS,
                                 quant_roundtrip_batched=r)),
     "lm_vlm": (VLM_ARCH, VLM_LAYERS, VLM_PARAMS, VLM_PACKED, VLM_CLIENTS,
                ("--compressor", "int8"),
-               lambda r: expect(sophia_update_batched=r * LM_ITERS,
+               lambda r: expect(sophia_update_leaves=r * LM_ITERS,
                                 quant_roundtrip_batched=r)),
 }
 #: the phases whose resumed round (round 0's batches again: the CLI
@@ -3397,7 +3498,7 @@ def slstm_input_gates(cfg, spec) -> np.ndarray:
     return tflat.leaf_coords(spec, "/mixer/b_gates", D, 2 * D).numpy()
 
 
-def lm_small_launches(fed, rounds) -> dict:
+def lm_small_launches(fed, rounds, leafy) -> dict:
     """The exact launches of ``rounds`` LM rounds of ``fed`` (parallel:
     one batched launch a stage; sequential: one flat launch a
     participant a stage), from `FedEngine._round_comm` and
@@ -3405,13 +3506,16 @@ def lm_small_launches(fed, rounds) -> dict:
     round-trip (int8 with EF: the fused uplink; top-k: the threshold;
     SignSGD: the sign round-trip); the downlink's broadcast; the
     hessian stream's round-trip of each participant's h and the
-    server's one flat round-trip of the averaged curvature."""
+    server's one flat round-trip of the averaged curvature.  ``leafy``:
+    whether the steps take the leaf route (`sophia_update.takes_leaves`
+    of the resident state)."""
     comm = fed.comm
     S = comm.num_participants(fed.num_clients)
     par = fed.strategy == "parallel"
     n = rounds if par else rounds * S
     form = "batched" if par else "flat"
-    want = {f"sophia_update_{form}": n * fed.local_iters}
+    want = {("sophia_update_leaves" if leafy else "sophia_update_" + form):
+            n * fed.local_iters}
 
     def add(kernel, count):
         want[kernel] = want.get(kernel, 0) + count
@@ -3587,7 +3691,9 @@ def lm_small_case(device, label):
                     got_b)
         flips.append(flip_band(f"lm small check {label} round {r}",
                                want_b, got_b, steps, free))
-    want = lm_small_launches(fed, sm["rounds"])
+    card = states["card"]
+    want = lm_small_launches(fed, sm["rounds"], tk.takes_leaves(
+        card["params"], card["client_opt"].m, card["client_opt"].h))
     if launches != want:
         raise SystemExit(f"lm small check {label}: launches {launches}, "
                          f"want {want}")
@@ -3920,16 +4026,76 @@ def serve_small_check(device):
 LM_TIMED_LAUNCHES, LM_PLAIN_CHUNK = 50, 5
 
 
-def lm_sophia_inputs(shape, device, seed):
-    """`sophia_inputs`' distributions (fp32) drawn on the card: the LM
-    shapes hold billions of coordinates."""
+def lm_leaf_inputs(arch, layers, lead, device, seed):
+    """The leaf-boundary step's operands at an LM slice's real size,
+    drawn on the card: the layout of ``arch`` x ``layers``' parameters
+    (`init_lm`'s shapes and dtypes), fp32 theta, m, h of `sophia_inputs`'
+    distributions over ``lead`` clients, the grads and h_hat leaves in
+    each leaf's dtype (a tied embedding's stored with its last two axes
+    swapped, as its head's GEMM returns it), the params store of the
+    leaves not stored fp32, and the zero h_hat buffer."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_model_config(arch), num_layers=layers)
+    tree = T.init_lm(T._ShapeOnly(), cfg)
+    spec = tflat.flat_spec(tree, cols=1024)
     g = gen(device, seed)
-
-    def randn(scale):
-        return torch.randn(shape, generator=g, device=device) * scale
-    h = randn(0.01).abs_()
+    shape = lead + (spec.rows, spec.cols)
+    th = torch.randn(shape, generator=g, device=device)
+    m = torch.randn(shape, generator=g, device=device).mul_(0.1)
+    h = torch.randn(shape, generator=g, device=device).mul_(0.01).abs_()
     h.view(-1)[::17] = 0.0
-    return [randn(1.0), randn(0.1), h, randn(0.5), randn(0.02).abs_()]
+
+    def leaves(scale, positive):
+        out = {}
+        for k in spec.keys:
+            shp = lead + tuple(tree[k].shape)
+            swap = k == "embed" and cfg.tie_embeddings
+            x = torch.randn(shp[:-2] + shp[:-3:-1] if swap else shp,
+                            generator=g, device=device).mul_(scale)
+            x = (x.abs_() if positive else x).to(tree[k].dtype)
+            out[k] = x.transpose(-1, -2) if swap else x
+        return out
+    grads, h_hat = leaves(0.5, False), leaves(0.02, True)
+    out = {k: torch.empty(lead + tuple(v.shape), dtype=v.dtype,
+                          device=device)
+           for k, v in tree.items() if v.dtype != torch.float32}
+    return spec, th, m, h, grads, h_hat, out, torch.zeros_like(th)
+
+
+def lm_leaf_same_bits(label, spec, before, after, grads, h_hat, out,
+                      chunk=1 << 24):
+    """`same_bits` of a leaf-boundary refresh step's theta, m, h
+    (``after``) and params store against `kref.sophia_update_leaves_ref`
+    run from ``before`` one leaf at a time, in runs of at most ``chunk``
+    coordinates a client: the check holds no full-size temporaries of
+    the plain version."""
+    lead = tuple(before[0].shape[:-2])
+    flat = [[x.reshape(lead + (spec.padded,)) for x in xs]
+            for xs in (before, after)]
+    worst, off = 0.0, 0
+    for k, sz, dt in zip(spec.keys, spec.sizes, spec.dtypes):
+        g_k, hh_k = (src[k].reshape(lead + (sz,)) for src in (grads, h_hat))
+        o_k = out[k].view(lead + (sz,)) if k in out else None
+        for a in range(0, sz, chunk):
+            n = min(chunk, sz - a)
+            sub = tflat.FlatSpec((k,), (n,), ((n,),), (dt,), n, 1, n)
+            run = slice(off + a, off + a + n)
+            want = kref.sophia_update_leaves_ref(
+                *(x[..., run].reshape(lead + (1, n)) for x in flat[0]),
+                {k: g_k[..., a:a + n]}, {k: hh_k[..., a:a + n]}, 1.0,
+                spec=sub, out_dtypes={k: dt} if o_k is not None else {},
+                lr=LR, **HP)
+            got = tuple(x[..., run].reshape(lead + (1, n)) for x in flat[1])
+            if o_k is not None:
+                got, want = (got + (o_k[..., a:a + n],),
+                             tuple(want[:3]) + (want[3][k],))
+            worst = max(worst, same_bits(f"{label} {k}",
+                                         "sophia_update_leaves", got,
+                                         tuple(want[:len(got)])))
+            del want
+        off += sz
+    return worst
 
 
 def lm_same_bits(label, name, got, plain, ins, chunks=8):
@@ -3954,22 +4120,26 @@ def lm_same_bits(label, name, got, plain, ins, chunks=8):
 
 def time_lm_kernels(device):
     """The kernels at the LM slices' shapes, each bitwise its plain
-    version (`lm_same_bits`) and timed beside it (`time_pair`):
+    version and timed (`time_pair`):
 
-    * row 2 at one client's slice of each parallel phase's packed
-      buffer: minicpm-2b x 2 layers ``(1, 395724, 1024)``,
-      recurrentgemma-2b x 3 ``(1, 890933, 1024)``, xlstm-1.3b x 8
-      ``(1, 755049, 1024)``: θ, m, h, g, ĥ read, θ, m, h written, 32 B
-      a coordinate;
-    * row 1 at gemma2-9b x 2 layers' packed ``(1283104, 1024)`` and at
-      deepseek-v2-lite-16b x 2 layers' ``(1551883, 1024)``;
-    * row 4 at the same shapes: x and the noise read, x̂ written (and
-      the row scales), 12 B a coordinate;
+    * the leaf-boundary form (the leaf route, `sophia_update_leaves`) at
+      each LM phase's step: minicpm-2b x 2 layers over its 4 clients
+      ``(4, 395724, 1024)``, recurrentgemma-2b x 3 and xlstm-1.3b x 8
+      over 2 ``(2, 890933, 1024)``, ``(2, 755049, 1024)``, gemma2-9b x 2
+      and deepseek-v2-lite-16b x 2 one client ``(1283104, 1024)``,
+      ``(1551883, 1024)``: bf16 leaves (a tied embedding's grads
+      swapped), the params store.  A refresh step checked against
+      `kref.sophia_update_leaves_ref` a leaf at a time
+      (`lm_leaf_same_bits`); a plain step (the zero h_hat buffer) timed
+      against the packed route it replaced (pack the grads, row 1 or 2,
+      unpack theta), whose plain version's temporaries exceed the card;
+    * row 4 at gemma2-9b's and deepseek-v2-lite-16b's slices: x and the
+      noise read, x̂ written (and the row scales), 12 B a coordinate;
     * row 5 at each int8 parallel phase's cohort: minicpm-2b's 4
       clients ``(4, 395724, 1024)``, recurrentgemma-2b's and xlstm-1.3b's
       2: 12 B a coordinate.
 
-    fp32 throughout.  Returns (name, LM slice) -> timing."""
+    Returns (name, LM slice) -> timing."""
     lr = torch.tensor(LR)
     out = {}
     card = card_info()
@@ -3981,37 +4151,51 @@ def time_lm_kernels(device):
               f"plain {t['plain_ms']} ms, max |err| {err}; {card}")
         out[key, arch] = t
 
-    for arch, (R, C) in ((LM_ARCH, LM_PACKED), (REC_ARCH, REC_PACKED),
-                         (XLSTM_ARCH, XLSTM_PACKED)):
-        ins = lm_sophia_inputs((1, R, C), device, SEED + 98)
-        err = lm_same_bits("lm slice", "sophia_update_batched",
-                           tk.sophia_update_batched(*ins, 1, lr, **HP),
-                           lambda a: sophia_update_ref(*a, 1, lr=lr, **HP),
-                           ins)
-        report("sophia_update_batched", arch, time_pair(
-            f"sophia_update_batched (LM slice: one client of {arch} x "
-            f"{layers[arch]} layers)",
-            lambda i: tk.sophia_update_batched(*ins, 1, lr, **HP),
-            lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
-            ins, ins[:3], SOPHIA_OPS, plain_chunk=LM_PLAIN_CHUNK,
-            launches=LM_TIMED_LAUNCHES), err)
-        del ins
+    name = "sophia_update_leaves"
+    for arch, lead, packed in (
+            (LM_ARCH, (LM_CLIENTS,), LM_PACKED),
+            (REC_ARCH, (REC_CLIENTS,), REC_PACKED),
+            (XLSTM_ARCH, (REC_CLIENTS,), XLSTM_PACKED),
+            (SEQ_ARCH, (), SEQ_PACKED), (MOE_ARCH, (), MOE_PACKED)):
+        spec, th, m, h, g, hh, store, zero = lm_leaf_inputs(
+            arch, layers[arch], lead, device, SEED + 98)
+        if (spec.rows, spec.cols) != packed:
+            raise SystemExit(f"lm slice {arch}: the layout packs "
+                             f"{(spec.rows, spec.cols)}, not {packed}")
+        before = [x.clone() for x in (th, m, h)]
+        steps, vec = tk.STEPS[name], tk.F32X4_LAUNCHES[name]
+        tk.sophia_update_leaves(th, m, h, g, hh, 1, LR, spec=spec,
+                                out=store, **HP)
+        sync()
+        if tk.STEPS[name] != steps + 1:
+            raise SystemExit(f"lm slice {arch}: the leaf-boundary form "
+                             "did not launch")
+        err = lm_leaf_same_bits(f"lm slice {arch}", spec, before,
+                                (th, m, h), g, hh, store)
+        print(f"lm slice {name} ({arch}): refresh step with the params "
+              f"store bitwise the plain version; every leaf vector "
+              f"accesses: {tk.F32X4_LAUNCHES[name] != vec}")
+        del before, hh
         torch.cuda.empty_cache()
+        step = tk.sophia_update_batched if lead else tk.sophia_update_flat
 
-    for arch, (R, C) in ((SEQ_ARCH, SEQ_PACKED), (MOE_ARCH, MOE_PACKED)):
-        ins = lm_sophia_inputs((R, C), device, SEED + 97)
-        err = lm_same_bits("lm slice", "sophia_update_flat",
-                           tk.sophia_update_flat(*ins, 1, lr, **HP),
-                           lambda a: sophia_update_ref(*a, 1, lr=lr, **HP),
-                           ins)
-        report("sophia_update_flat", arch, time_pair(
-            f"sophia_update_flat (LM slice: {arch} x {layers[arch]} "
-            "layers)",
-            lambda i: tk.sophia_update_flat(*ins, 1, lr, **HP),
-            lambda i: sophia_update_ref(*ins, 1, lr=lr, **HP),
-            ins, ins[:3], SOPHIA_OPS, plain_chunk=LM_PLAIN_CHUNK,
-            launches=LM_TIMED_LAUNCHES), err)
-        del ins
+        def packed_route(i):
+            step(th, m, h, tflat.pack(g, spec), zero, 0, lr, inplace=True,
+                 **HP)
+            tflat.unpack(th, spec)
+        report(name, arch, time_pair(
+            f"{name} (LM slice: {arch} x {layers[arch]} layers"
+            + (f", {lead[0]} clients" if lead else "") + ")",
+            lambda i: tk.sophia_update_leaves(th, m, h, g, zero, 0, LR,
+                                              spec=spec, out=store, **HP),
+            packed_route, [th, m, h, *g.values(), zero],
+            [th, m, h, *store.values()], SOPHIA_OPS,
+            # a call's host work grows with the leaves (xlstm-1.3b x 8 has
+            # 113): the packed route's pack and unpack, about 20 ms a
+            # call on the card's host, are queued one call at a time,
+            # each behind its own sleep, so fewer calls are timed
+            plain_chunk=1, kernel_chunk=2, launches=20), err)
+        del spec, th, m, h, g, store, zero
         torch.cuda.empty_cache()
 
     for name, arch, shape in (
@@ -4227,7 +4411,7 @@ def examples_check(device):
                                     hyperparam_table.make_data(device),
                                     rounds=HYPERPARAM_ROUNDS)
     check(f"hyperparam_table lr {lr} J {J}", launch_counts(),
-          expect(sophia_update_batched=HYPERPARAM_ROUNDS * J))
+          expect(sophia_update_leaves=HYPERPARAM_ROUNDS * J))
     if not (all(np.isfinite(res["losses"]))
             and all(0.0 <= a <= 1.0 for a in res["accs"])):
         raise SystemExit(f"examples_check hyperparam_table: losses "
@@ -4434,10 +4618,10 @@ def main() -> None:
           "gives 0 for NaN and +0 for -0), top-k's threshold (a compare "
           "and a select) or the trimmed / clipped combine (torch.sort "
           "sorts, it does not trim or weight)")
-    # the narrow forms of rows 2, 5 and 9: beside the 15, not among them
+    # the narrow forms of rows 2, 5 and 9: beside the 16, not among them
     print(json.dumps({"narrow_kernels": narrow_kernels}))
-    # the LM slices' shapes of rows 1, 2, 4 and 5, with each LM phase's
-    # launches of them: beside the 15, not among them
+    # the LM slices' shapes of rows 2b, 4 and 5, with each LM phase's
+    # launches of them: beside the 16, not among them
     print(json.dumps({"lm_kernels": [
         dict(name=name, slice=arch,
              launches={phase: counts[name] for phase, counts

@@ -31,7 +31,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import store_as
+from repro_torch.kernels.ref import store_as, store_into
 
 #: magic + version of the serialized wire-buffer format.  Version 2
 #: carries the resident-state dtype in the flags byte; version-1
@@ -311,6 +311,31 @@ def unpack(flat: torch.Tensor, spec: FlatSpec) -> Dict[str, torch.Tensor]:
     for k, sz, shp, dt in zip(spec.keys, spec.sizes, spec.shapes,
                               spec.dtypes):
         out[k] = store_as(v[..., off:off + sz].reshape(lead + shp), dt)
+        off += sz
+    return out
+
+
+def leaves_of(flat: torch.Tensor,
+              spec: FlatSpec) -> Dict[str, torch.Tensor]:
+    """`unpack`'s parameter dict of a ``(*lead, rows, cols)`` buffer, with
+    every leaf stored in a dtype other than ``flat``'s a contiguous
+    ``(*lead, *shape)`` tensor, cast from one contiguous run a client (a
+    cast of a strided view is a slow kernel on the card); the other
+    leaves are views of ``flat``, as `unpack` gives them."""
+    lead = tuple(flat.shape[:-2])
+    v = flat.reshape(lead + (-1,))
+    runs = v.reshape(-1, spec.padded)
+    out: Dict[str, torch.Tensor] = {}
+    off = 0
+    for k, sz, shp, dt in zip(spec.keys, spec.sizes, spec.shapes,
+                              spec.dtypes):
+        if dt == flat.dtype:
+            out[k] = v[..., off:off + sz].reshape(lead + shp)
+        else:
+            out[k] = torch.empty(lead + shp, dtype=dt, device=flat.device)
+            dst = out[k].view(-1, sz) if sz else None
+            for c in range(runs.shape[0] if sz else 0):
+                store_into(dst[c], runs[c, off:off + sz])
         off += sz
     return out
 

@@ -96,14 +96,16 @@ from repro_torch.comm.compressors import (BIASED, StochasticQuant,
                                           participation_sample,
                                           wants_error_feedback)
 from repro_torch.comm.flat import (FlatSpec, Header, as_dtype, cat_rows,
-                                   flat_spec, pack, put_rows_, repack,
-                                   take_rows, unpack, with_cols, zeros)
+                                   flat_spec, leaves_of, pack, put_rows_,
+                                   repack, take_rows, unpack, with_cols,
+                                   zeros)
 from repro_torch.configs.base import COMM_STREAMS, FedConfig
 from repro_torch.core.gnb import (gnb_estimate, labels_of,
                                   value_and_grads)
 from repro_torch.core.schedules import lr_at_round
 from repro_torch.core.sophia import SophiaState, sophia_step_flat
 from repro_torch.kernels.ref import sign, store_as, store_into
+from repro_torch.kernels.sophia_update import takes_leaves
 from repro_torch.models.small import gumbel_noise
 from repro_torch.obs import probes as obs_probes
 from repro_torch.obs import spans
@@ -1048,6 +1050,16 @@ class FedEngine:
         with annotate(PACK):
             return loss, pack(dict(zip(spec.keys, grads)), spec), pg
 
+    def _leaf_value_and_grad(self, params, batch):
+        """The loss/grad boundary on the leaf route: the forward reads
+        the leaves ``params`` (the Sophia step keeps them), and the grads
+        stay autograd's leaves, as the step reads them.  Returns
+        ``(loss, grads, params view for the GNB refresh)``."""
+        pg = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss, grads = value_and_grads(self.task.loss, pg, batch,
+                                      self.fed.grad_microbatches, LOSS_GRAD)
+        return loss, dict(zip(pg, grads)), pg
+
     def _gnb(self, params, batch, noise, j):
         """The GNB estimate of ``params`` from gumbel draw ``j``
         (micro-batched as the loss/grad boundary is); the draw is freed
@@ -1060,10 +1072,25 @@ class FedEngine:
     def _sophia_loop(self, spec, t, m, h, batch, round_idx, noise, lr):
         """The J local Sophia iterations over the buffers ``t``, ``m``,
         ``h`` (one client ``(rows, cols)``, or a cohort ``(N, rows,
-        cols)``), updated in place.  Returns the per-step losses."""
+        cols)``), updated in place.  Returns the per-step losses.
+
+        On the leaf route (`takes_leaves`: fp32 m and h) the params
+        leaves are cast from ``t`` once, and each step's kernel reads
+        the grads and h_hat as autograd's leaves and stores the next
+        step's params leaves (not after the last step: no forward reads
+        them); fp32 leaves are views of ``t``, which the step writes.
+        Otherwise each step unpacks ``t`` and packs the grads and
+        h_hat."""
         fed = self.fed
         with annotate(GNB):
             no_hh = torch.zeros_like(t)
+        leafy = takes_leaves(t, m, h)
+        stores = None
+        if leafy:
+            with annotate(PACK):
+                params = leaves_of(t, spec)
+            stores = {k: v for k, v in params.items()
+                      if v.dtype != t.dtype}
         # round mode (Alg. 1 line 9 literal): the GNB estimate uses the
         # round-start params, once per refresh round
         round_mode = fed.hessian_every_unit == "round"
@@ -1071,16 +1098,22 @@ class FedEngine:
             do_h_round = round_idx % fed.tau == 0
             hh_round = no_hh
             if do_h_round:
-                with annotate(PACK):
-                    p0 = unpack(t, spec)
-                h0 = self._gnb(p0, batch, noise, 0)
-                del p0               # before the pack, as it was
-                with annotate(PACK):
-                    hh_round = pack(h0, spec)
-                del h0
+                if leafy:
+                    hh_round = self._gnb(params, batch, noise, 0)
+                else:
+                    with annotate(PACK):
+                        p0 = unpack(t, spec)
+                    h0 = self._gnb(p0, batch, noise, 0)
+                    del p0               # before the pack, as it was
+                    with annotate(PACK):
+                        hh_round = pack(h0, spec)
+                    del h0
         losses = []
         for j in range(fed.local_iters):
-            loss, g, pg = self._flat_value_and_grad(t, batch, spec)
+            if leafy:
+                loss, g, pg = self._leaf_value_and_grad(params, batch)
+            else:
+                loss, g, pg = self._flat_value_and_grad(t, batch, spec)
             if round_mode:
                 do_h = do_h_round and j == 0   # EMA applied once per refresh
                 hh = hh_round
@@ -1089,15 +1122,18 @@ class FedEngine:
                 hh = no_hh
                 if do_h:
                     hh = self._gnb(pg, batch, noise, j)
-                    with annotate(PACK):
-                        hh = pack(hh, spec)
+                    if not leafy:
+                        with annotate(PACK):
+                            hh = pack(hh, spec)
             # in place: the engine owns t, and m/h are the resident EMAs
             # (the counterpart of the JAX round's buffer donation)
+            last = j == fed.local_iters - 1
             with annotate(OPTIMIZER):
                 sophia_step_flat(
                     t, m, h, g, hh, do_h, lr=lr, beta1=fed.beta1,
                     beta2=fed.beta2, rho=fed.rho, eps=fed.eps,
-                    weight_decay=fed.weight_decay, inplace=True)
+                    weight_decay=fed.weight_decay, inplace=True, spec=spec,
+                    leaves=None if last else stores)
             losses.append(loss)
             # this step's grads and params view go before the next
             # step's are made (two of each would coexist: gigabytes at

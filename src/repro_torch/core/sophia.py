@@ -10,7 +10,9 @@ package:
   form of ``csrc/sophia_update.cu`` over the leaves where they lie); on
   the CPU, the per-leaf tensor arithmetic of its parts;
 * the flat form (`sophia_step_flat`), over packed wire buffers: what the
-  round engine calls, the kernel fed directly with no pack or unpack.
+  round engine calls, the kernel fed directly with no pack or unpack;
+  on its leaf route it reads the grads and h_hat as the loss/grad
+  boundary's leaves and stores the next forward's params leaves itself.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 from repro_torch.kernels.cost import shape_only
 from repro_torch.kernels.ref import store_as
 from repro_torch.kernels.sophia_update import (sophia_update_batched,
-                                               sophia_update_flat)
+                                               sophia_update_flat,
+                                               sophia_update_leaves)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_zeros_like
 
 
@@ -86,14 +89,24 @@ def sophia_step(params, grads, state: SophiaState, h_hat, do_h_update, *,
 
 
 def sophia_step_flat(theta, m, h, grads, h_hat, do_h_update, *, lr, beta1,
-                     beta2, rho, eps, weight_decay, inplace: bool = False):
+                     beta2, rho, eps, weight_decay, inplace: bool = False,
+                     spec=None, leaves=None):
     """One local iteration (Alg. 1 lines 7-16) over packed buffers.
 
     ``(clients, rows, cols)`` stacks go to the client-batched entry (one
     launch for the whole cohort), ``(rows, cols)`` buffers to the flat
-    one.  On the card the kernel always runs; on the CPU its plain
-    version.  ``do_h_update`` and ``lr`` are host scalars.  Returns
-    ``(theta, m, h)``."""
+    one.  With ``grads`` a dict of leaves (the leaf route: fp32 resident
+    buffers of layout ``spec``, `sophia_update_leaves`), ``h_hat`` a
+    dict of leaves or a buffer, the step runs in place and stores the
+    new theta into the ``leaves`` dict's buffers (None: no store).  On
+    the card the kernel always runs; on the CPU its plain version.
+    ``do_h_update`` and ``lr`` are host scalars.  Returns ``(theta, m,
+    h)``."""
+    if isinstance(grads, dict):
+        return sophia_update_leaves(
+            theta, m, h, grads, h_hat, do_h_update, lr, spec=spec,
+            out=leaves, beta1=beta1, beta2=beta2, rho=rho, eps=eps,
+            weight_decay=weight_decay)[:3]
     fn = sophia_update_batched if theta.ndim == 3 else sophia_update_flat
     return fn(theta, m, h, grads, h_hat, do_h_update, lr, beta1=beta1,
               beta2=beta2, rho=rho, eps=eps, weight_decay=weight_decay,

@@ -9,8 +9,8 @@ rounds, lr 0.01, 0.003 and 0.0005 at J=10, then J = 1, 5 and 10 at lr
 1.8, a Dirichlet partition at alpha 0.5, ``CNNTask(channels=(8, 16))``,
 tau 5, train batches of 64, test batches of 128, the test accuracy after
 each round), and the table prints the last round's accuracy.  On the
-card every round runs the batched Sophia kernel (row 2,
-``sophia_update_batched``) once a local step.  Runs on the card;
+card every round runs the Sophia kernel's leaf-boundary form (the leaf
+route, ``sophia_update_leaves``) once a local step.  Runs on the card;
 ``--device cpu`` runs on the CPU:
 
     PYTHONPATH=src python -m repro_torch.examples.hyperparam_table \

@@ -1,7 +1,7 @@
 """The kernels' shape-only path and the cost of one launch.
 
 A tensor without storage, a fake tensor (`torch._subclasses.fake_tensor`)
-or a meta tensor, whatever its device, that reaches one of the fifteen
+or a meta tensor, whatever its device, that reaches one of the sixteen
 kernel entry points takes the shape-only path: the wrapper validates its
 inputs as ever, records the launch in every active cost trace
 (`repro_torch.launch.op_cost.OpCost`, which counts it) with the bytes it

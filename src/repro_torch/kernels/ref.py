@@ -135,6 +135,47 @@ def sophia_update_ref(theta, m, h, g, h_hat, do_h, *, lr, beta1, beta2,
             store_as(m, out_dt[1]), store_as(h, out_dt[2]))
 
 
+def _lay_flat(leaves, spec, like):
+    """A dict of ``(*lead, *shape)`` leaves laid into one fp32 buffer of
+    ``like``'s ``(*lead, rows, cols)`` shape, in ``spec``'s order, zero
+    past the leaves: the values `repro_torch.comm.flat.pack` gives."""
+    lead = tuple(like.shape[:-2])
+    v = torch.zeros(lead + (spec.padded,), dtype=torch.float32,
+                    device=like.device)
+    off = 0
+    for k, sz in zip(spec.keys, spec.sizes):
+        v[..., off:off + sz] = leaves[k].reshape(lead + (sz,))
+        off += sz
+    return v.reshape(like.shape)
+
+
+def sophia_update_leaves_ref(theta, m, h, grads, h_hat, do_h, *, spec,
+                             out_dtypes, lr, beta1, beta2, rho, eps,
+                             weight_decay):
+    """Reference semantics of the leaf-boundary form: the grads, and
+    ``h_hat`` when it is a dict of leaves, laid into fp32 buffers as the
+    pack lays them (exact upcasts), `sophia_update_ref` over the
+    ``(*lead, rows, cols)`` buffers, then each key of ``out_dtypes``
+    (key -> dtype) given its new theta leaf, ``(*lead, *shape)`` stored
+    in that dtype as the unpack casts it.  ``spec``: the buffers' layout
+    (``keys``, ``sizes``, ``shapes``, ``padded``).  Returns ``(theta, m,
+    h, leaves)``."""
+    g = _lay_flat(grads, spec, theta)
+    hh = h_hat if torch.is_tensor(h_hat) else _lay_flat(h_hat, spec, theta)
+    theta, m, h = sophia_update_ref(theta, m, h, g, hh, do_h, lr=lr,
+                                    beta1=beta1, beta2=beta2, rho=rho,
+                                    eps=eps, weight_decay=weight_decay)
+    lead = tuple(theta.shape[:-2])
+    v = theta.reshape(lead + (-1,))
+    leaves, off = {}, 0
+    for k, sz, shp in zip(spec.keys, spec.sizes, spec.shapes):
+        if k in out_dtypes:
+            leaves[k] = store_as(v[..., off:off + sz].reshape(lead + shp),
+                                 out_dtypes[k])
+        off += sz
+    return theta, m, h, leaves
+
+
 def quant_roundtrip_ref(x, noise, scale, *, qmax):
     """Per-row-scale stochastic quantize then dequantize, in ``x``'s
     dtype: ``clip(floor(x / safe + u), -qmax, qmax) * scale`` with

@@ -11,7 +11,7 @@ dtypes only, no storage and no arithmetic.
     aliases cost 0, as do allocations that write nothing (``empty``); an
     in-place op writes its output once.  Without fusion this is the
     traffic the program makes.
-  * The kernels: each launch of the fifteen entry points on storage-less
+  * The kernels: each launch of the sixteen entry points on storage-less
     tensors is recorded by its shape-only path (`kernels/cost.py`) with
     its bytes and fp32 operations, and counted in ``launches``.
   * The peak: the bytes of live storages.  A storage is counted when an

@@ -8,6 +8,10 @@
 * `repro_torch.obs.buffer` — `MetricsAccumulator`, the device-side
   metrics buffer that holds the host sync back to the flush boundary;
 * `repro_torch.obs.probes` — the Sophia health scalars;
+* `repro_torch.obs.counters` — program counters of the kernels
+  (`sophia_leaf_route_share`: the Sophia steps on the leaf route; a
+  submodule of the port's own, outside ``__all__``, which is the JAX
+  package's);
 * `repro_torch.obs.spans`  — host span timers (each span is also a
   `torch.profiler.record_function` range), `annotate` (such a range
   alone) and `profile_trace`, a `torch.profiler` capture of a run;

@@ -35,12 +35,19 @@ from repro_torch.obs.probes import PROBE_METRICS  # noqa: F401 (re-export)
 #:   fed.gnb        the GNB estimate: its gumbel draw, sampled forward
 #:                  and backward and B g g; the zero h_hat of steps
 #:                  without a refresh
-#:   fed.pack       the loss/grad boundary's layout moves: unpack of
-#:                  theta into leaves, pack of the grads and of h_hat,
-#:                  repack between stream geometries, theta's fp32 cast,
-#:                  the clients' working copies of the start model
-#:   fed.optimizer  the local update: the Sophia step, or SGD's axpy,
-#:                  DONE's step; fresh EMAs of a stateless client
+#:   fed.pack       the loss/grad boundary's layout moves: on the
+#:                  Sophia step's leaf route the one cast of the start
+#:                  model into the params leaves (and a contiguous copy
+#:                  of a grad or h_hat leaf the step cannot read where
+#:                  it lies); on the packed route and for local SGD,
+#:                  unpack of theta into leaves, pack of the grads and
+#:                  of h_hat; repack between stream geometries, theta's
+#:                  fp32 cast, the clients' working copies of the start
+#:                  model
+#:   fed.optimizer  the local update: the Sophia step (on the leaf
+#:                  route it also reads the grads and h_hat leaves and
+#:                  stores the next step's params leaves), or SGD's
+#:                  axpy, DONE's step; fresh EMAs of a stateless client
 #:   fed.comm       participation (the draw and the gather of the
 #:                  participants' rows), the downlink broadcast, the
 #:                  uplink encode, the hessian round trip,

@@ -49,11 +49,13 @@ def test_dryrun_reduced(arch, shape, tmp_path, capsys):
     train = shape == "train_4k"
     assert (sum(rec["launches"].values()) > 0) == train
     if train:
+        # the fp32 resident state takes the leaf route: one launch a
+        # cohort's step, or a client's
         fed = api.resolve_fed(arch, local_iters=1)
-        entry = ("sophia_update_batched" if fed.strategy == "parallel"
-                 else "sophia_update_flat")
         per_step = 1 if fed.strategy == "parallel" else fed.num_clients
-        assert rec["launches"][entry] == per_step
+        assert rec["launches"]["sophia_update_leaves"] == per_step
+        assert rec["launches"]["sophia_update_batched"] == 0
+        assert rec["launches"]["sophia_update_flat"] == 0
 
 
 def test_dryrun_skip_rules_and_fits(tmp_path, capsys):
@@ -99,7 +101,8 @@ def test_trace_launches_equal_the_cpu_rounds_calls(monkeypatch):
     real = tfed.sophia_step_flat
 
     def counted(theta, *a, **kw):
-        name = ("sophia_update_batched" if theta.ndim == 3
+        name = ("sophia_update_leaves" if isinstance(a[2], dict) else
+                "sophia_update_batched" if theta.ndim == 3
                 else "sophia_update_flat")
         calls[name] = calls.get(name, 0) + 1
         return real(theta, *a, **kw)
@@ -112,4 +115,4 @@ def test_trace_launches_equal_the_cpu_rounds_calls(monkeypatch):
     _, metrics = bundle.fn(state, batches, gen)
     assert torch.isfinite(metrics["loss"])
     assert {k: v for k, v in traced.items() if v} == calls == {
-        "sophia_update_batched": 3}
+        "sophia_update_leaves": 3}

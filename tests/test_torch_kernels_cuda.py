@@ -29,6 +29,7 @@ from repro_torch.kernels import robust_agg as trobust
 from repro_torch.kernels import sophia_update as tk
 from repro_torch.kernels import stale_accum as tstale
 from repro_torch.kernels.ref import sophia_update_ref
+from repro_torch.obs import counters
 
 HP = dict(beta1=0.9, beta2=0.95, rho=0.04, eps=1e-12, weight_decay=1e-4)
 LR = 3e-3
@@ -1174,3 +1175,171 @@ def test_lm_checkpoint_round_trip_on_the_card(card, tmp_path):
     assert again.device.type == "cuda"
     assert torch.equal(again, tflat.pack(leaves, spec))
     assert ckpt.load_manifest(str(tmp_path))["extra"] == {"k": 1}
+
+
+# ------------------------------------------- the leaf-boundary form
+#: name: (leaf shapes, the keys whose grads come back swapped, cols)
+BOUNDARY_CASES = {
+    # a tied embedding's swapped grad, a norm, a stacked layer leaf
+    "aligned": ({"emb": (480, 256), "norm": (256,), "w": (2, 96, 128)},
+                ("emb", "w"), 1024),
+    # odd sizes: ragged tiles and runs, an unaligned offset (c), a
+    # vector leaf after it (d)
+    "odd": ({"a": (36, 72), "b": (5,), "c": (3, 33, 65), "d": (4100,)},
+            ("a", "c"), 1000),
+    # more leaves than one launch's table holds
+    "past-the-cap": ({f"l{i:02d}": ((i % 5) + 1, 3 + (i % 4) * 29)
+                      for i in range(tk.BOUNDARY_MAX_LEAVES + 7)},
+                     ("l03", "l34"), 64),
+}
+
+
+def _boundary_operands(card, shapes, swap, cols, lead, refresh, seed):
+    """fp32 theta, m, h (zero past the leaves, some h 0), grads and h_hat
+    leaves (bf16 and fp32 by turns, ``swap``'s keys swapped; h_hat the
+    zero buffer without a refresh) and the spec."""
+    rs = np.random.default_rng(seed)
+    dtypes = {k: torch.float32 if i % 3 == 1 else torch.bfloat16
+              for i, k in enumerate(shapes)}
+    spec = tflat.flat_spec({k: torch.empty(s, dtype=dtypes[k])
+                            for k, s in shapes.items()}, cols=cols)
+
+    def leaves(scale, positive, swapped):
+        out = {}
+        for k, s in shapes.items():
+            x = scale * rs.standard_normal(lead + s)
+            x = torch.tensor(np.abs(x) if positive else x,
+                             dtype=torch.float32, device=card)
+            x = x.to(dtypes[k])
+            if k in swapped:
+                x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+            out[k] = x
+        return out
+
+    state = []
+    for scale in (1.0, 0.1, 0.01):
+        x = scale * rs.standard_normal(lead + (spec.padded,))
+        x[..., spec.total:] = 0.0
+        state.append(torch.tensor(x.reshape(lead + (spec.rows, spec.cols)),
+                                  dtype=torch.float32, device=card))
+    state[2] = state[2].abs()
+    state[2].reshape(-1)[::17] = 0.0
+    grads = leaves(0.5, False, swap)
+    h_hat = (leaves(0.02, True, swap[:1]) if refresh
+             else torch.zeros_like(state[0]))
+    return state, grads, h_hat, spec, dtypes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BOUNDARY_CASES))
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["flat", "cohort"])
+@pytest.mark.parametrize("refresh", [1, 0])
+@pytest.mark.parametrize("store", ["store", "last-step"])
+def test_leaf_boundary_kernel_bitwise_vs_plain(card, case, lead, refresh,
+                                               store):
+    """The leaf-boundary form against its plain version: theta, m, h and
+    the stored params leaves bitwise; without a store (a round's last
+    step) the leaf buffers are not touched; one launch a
+    `tk.BOUNDARY_MAX_LEAVES` leaves, all of them vector-aligned in the
+    aligned case."""
+    shapes, swap, cols = BOUNDARY_CASES[case]
+    state, grads, h_hat, spec, dtypes = _boundary_operands(
+        card, shapes, swap, cols, lead, refresh, len(shapes))
+    sentinel = float("nan")
+    out = {k: torch.full(lead + shapes[k], sentinel, dtype=dt, device=card)
+           for k, dt in dtypes.items() if dt != torch.float32}
+    want = ref.sophia_update_leaves_ref(
+        *state, grads, h_hat, float(refresh), spec=spec,
+        out_dtypes={k: v.dtype for k, v in out.items()}, lr=LR, **HP)
+    tk.reset_launches()
+    got = [x.clone() for x in state]
+    tk.sophia_update_leaves(*got, grads, h_hat, refresh, LR, spec=spec,
+                            out=out if store == "store" else None, **HP)
+    torch.cuda.synchronize()
+    _bitwise(got, want[:3])
+    for k, v in out.items():
+        if store == "store":
+            _bitwise([v], [want[3][k]])
+        else:
+            assert bool(torch.isnan(v.float()).all()), k
+    parts = -(-len(shapes) // tk.BOUNDARY_MAX_LEAVES)
+    assert tk.LAUNCHES["sophia_update_leaves"] == parts
+    assert tk.STEPS["sophia_update_leaves"] == 1
+    if case == "aligned":
+        assert tk.F32X4_LAUNCHES["sophia_update_leaves"] == parts
+    assert counters.sophia_leaf_route_share() == 1.0
+
+
+@pytest.mark.cuda
+def test_leaf_boundary_reads_a_buffer_h_hat_at_offsets(card):
+    """h_hat given as one resident-shaped buffer (the zero h_hat of a
+    plain step; here random, zero past the leaves as every buffer of
+    the layout is) is read at each leaf's offset, as the grads of an fp8
+    leaf are read elementwise: bitwise the plain version."""
+    shapes = {"a": (33, 40), "b": (71,), "c": (8, 64)}
+    state, grads, _, spec, dtypes = _boundary_operands(
+        card, shapes, ("a",), 256, (2,), 1, 11)
+    grads["b"] = grads["b"].float().to(torch.float8_e4m3fn)
+    hh = torch.rand_like(state[0]) * 0.02
+    hh.reshape(2, -1)[:, spec.total:] = 0.0
+    want = ref.sophia_update_leaves_ref(*state, grads, hh, 1.0, spec=spec,
+                                        out_dtypes={}, lr=LR, **HP)
+    got = [x.clone() for x in state]
+    tk.sophia_update_leaves(*got, grads, hh, 1, LR, spec=spec, **HP)
+    torch.cuda.synchronize()
+    _bitwise(got, want[:3])
+
+
+def _lm_round_engine(card, J=2):
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.fed import FedEngine
+    from repro_torch.models.transformer import LMTask
+    cfg = _lm_cfg("bfloat16")
+    fed = FedConfig(num_clients=2, local_iters=J, tau=J, lr=1e-3)
+    eng = FedEngine(LMTask(cfg), fed, device=card)
+    params = eng.task.init(torch.Generator(device=card).manual_seed(0),
+                           card)
+    return eng, params, _lm_batch(cfg, card, (2,))
+
+
+def _lm_rounds(eng, params, batches, rounds=2):
+    state = eng.pack_state(eng.init_from_params(
+        {k: v.clone() for k, v in params.items()}))
+    gen = torch.Generator(device=eng.device).manual_seed(3)
+    losses = []
+    for _ in range(rounds):
+        state, met = eng.round(state, batches, generator=gen)
+        losses.append(met["loss"])
+    torch.cuda.synchronize()
+    return state, losses
+
+
+@pytest.mark.cuda
+def test_lm_round_takes_the_leaf_route(card, monkeypatch):
+    """An LM round on the card: every Sophia step on the leaf route (the
+    counter reads 1.0), the state and losses bitwise the packed route's,
+    and fewer device activities a round by the pack's removed copies."""
+    from repro_torch.core import fed as tfed
+    eng, params, batches = _lm_round_engine(card)
+
+    def profiled(leafy):
+        if not leafy:
+            monkeypatch.setattr(tfed, "takes_leaves", lambda *a: False)
+        _lm_rounds(eng, params, batches, 1)          # warm
+        tk.reset_launches()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            state, losses = _lm_rounds(eng, params, batches)
+        monkeypatch.undo()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return state, losses, len(device), counters.sophia_leaf_route_share()
+
+    a, la, na, share_a = profiled(True)
+    b, lb, nb, share_b = profiled(False)
+    assert (share_a, share_b) == (1.0, 0.0)
+    assert tk.LAUNCHES["sophia_update_leaves"] == 0
+    _bitwise([a["params"], a["client_opt"].m, a["client_opt"].h],
+             [b["params"], b["client_opt"].m, b["client_opt"].h])
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    assert na < nb, (na, nb)

@@ -3,7 +3,7 @@
 
 The peak tracker and the byte count are exact on hand-built chains of
 ops (views and allocations at 0 bytes, broadcasts at their distinct
-elements, in-place ops writing once).  Each of the fifteen kernel entry
+elements, in-place ops writing once).  Each of the sixteen kernel entry
 points, given fake tensors, returns the real CPU call's shapes and
 dtypes and records the bytes `kernels/cost.py: launch_bytes` counts over
 the real call's operands and outputs; given real CPU tensors it records
@@ -24,6 +24,7 @@ from repro import configs as jconfigs
 from repro.launch.hlo_cost import HloCost
 from repro.models import transformer as JT
 from repro_torch import configs
+from repro_torch.comm.flat import flat_spec
 from repro_torch.kernels import cost, ops, quantize, robust_agg
 from repro_torch.kernels import sophia_update, stale_accum
 from repro_torch.launch.op_cost import KERNEL_NAMES, OpCost
@@ -111,6 +112,15 @@ def _entries():
     trees = [tree] + [{k: torch.rand(v.shape, generator=_gen(7 + i))
                        for k, v in tree.items()} for i in range(4)]
     q = dict(qmax=127)
+    # the leaf-boundary form over two bf16 leaves that fill the layout
+    # (no pad), stores of both
+    bf = torch.bfloat16
+    lspec = flat_spec({"a": torch.zeros(4, C, dtype=bf),
+                       "b": torch.zeros(C, dtype=bf)}, cols=C)
+    lt, lm, lh = _flat_inputs((N, lspec.rows, C), 3, 8)
+    lg = [x.to(bf) for x in _flat_inputs((N, 4, C), 2, 9)
+          + _flat_inputs((N, C), 2, 10)]
+    lh = lh.abs()
     return {
         "sophia_update_flat": (lambda *t: sophia_update.sophia_update_flat(
             *t, 1, 0.01, **HP), [th, m, h, gr, hh]),
@@ -143,6 +153,13 @@ def _entries():
             x, w, 0.25), [wires, w5]),
         "robust_agg_flat": (lambda x, w, s: robust_agg.robust_agg_flat(
             x, w, s, trim=1), [wires, w5, s5]),
+        "sophia_update_leaves": (
+            lambda th, m, h, ga, ha, gb, hb:
+            sophia_update.sophia_update_leaves(
+                th, m, h, {"a": ga, "b": gb}, {"a": ha, "b": hb}, 1, 0.01,
+                spec=lspec, out={"a": torch.empty_like(ga),
+                                 "b": torch.empty_like(gb)}, **HP),
+            [lt, lm, lh] + lg),
         "sophia_fused_step": (
             lambda *leaves: ops.sophia_fused_step(
                 *[dict(zip(("a", "b"), leaves[i:i + 2]))

@@ -33,18 +33,20 @@ GEMMS = ("aten::mm", "aten::bmm", "aten::addmm")
 #: at C=2 clients, J=2 local steps, a GNB refresh at the first: per
 #: client step, loss/grad opens forward and backward; the GNB its
 #: draw, forward, backward, B g g and the zero h_hat; pack theta's
-#: cast, the working copy, each step's unpack and grads' pack, h_hat's
-#: pack
+#: cast, the working copy and the one cast of the params leaves (the
+#: Sophia step reads the grads and h_hat as leaves and writes the next
+#: step's params leaves itself: no grad here needs a contiguous copy,
+#: the tied embedding's comes back swapped, which the step reads)
 CASES = {
     "direct-parallel": ("minicpm-2b", 2, "parallel", "identity", {
-        "fed.loss_grad": 2 * J, "fed.gnb": 5, "fed.pack": 2 + 2 * J + 1,
+        "fed.loss_grad": 2 * J, "fed.gnb": 5, "fed.pack": 2 + 1,
         "fed.optimizer": J, "fed.comm": 0, "fed.aggregate": 5}),
     "sequential-int8": ("deepseek-v2-lite-16b", 2, "sequential", "int8", {
         "fed.loss_grad": C * 2 * J, "fed.gnb": C * 5,
-        "fed.pack": 1 + C * (1 + 2 * J + 1), "fed.optimizer": C * J,
+        "fed.pack": 1 + C * (1 + 1), "fed.optimizer": C * J,
         "fed.comm": 3 + C, "fed.aggregate": 7 + C * 3}),
     "unreached-leaf": ("gemma2-9b", 1, "parallel", "identity", {
-        "fed.loss_grad": 2 * J, "fed.gnb": 5, "fed.pack": 2 + 2 * J + 1,
+        "fed.loss_grad": 2 * J, "fed.gnb": 5, "fed.pack": 2 + 1,
         "fed.optimizer": J, "fed.comm": 0, "fed.aggregate": 5}),
 }
 

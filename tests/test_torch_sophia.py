@@ -125,7 +125,8 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
         assert torch.equal(w, b) and torch.equal(w[0], f)
         assert torch.equal(w, i) and i is dst   # in place
     assert tk.LAUNCHES == {"sophia_update_flat": 0,
-                           "sophia_update_batched": 0}
+                           "sophia_update_batched": 0,
+                           "sophia_update_leaves": 0}
 
 
 def test_wrapper_rejects_bad_inputs():
