@@ -12,16 +12,24 @@ report it.  Everything else is a file of its own, found by name:
   (``<name>.<part>``, as ``tokens_per_s.seq``) is read by ``<name>.py``
   unless it has a file of its own;
 * a cell's limits on the numbers that decide ``correct``:
-  ``portbench/limits/<cell>.json``.
+  ``portbench/limits/<cell>.json``;
+* an architecture, named by a configuration file's ``"arch"`` key
+  (`DEFAULT_ARCH` without one): ``portbench/reference/<arch>.py``, its
+  sizes, weight schema and float32 reference, and
+  ``portbench/programs/<arch>.py``, its mapping onto the program's
+  config.  A conf that the reference module made leads back to it
+  (`arch_of`).
 
-So a cell, a configuration, a traffic mix or a metric is added as new
-files and entries in ``BENCHMARK.json``, with no edit to a file here.
+So a cell, a configuration, a traffic mix, a metric or an architecture
+is added as new files and entries in ``BENCHMARK.json``, with no edit to
+a file here.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List
@@ -29,6 +37,8 @@ from typing import Dict, List
 #: the benchmark's folder, and the checkout's root above it
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+#: the arch of a configuration file with no ``"arch"`` key
+DEFAULT_ARCH = "decoder"
 
 
 class Bench:
@@ -82,3 +92,47 @@ class Bench:
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         return mod
+
+    def arch(self, conf_json: dict) -> ModuleType:
+        """The reference module of configuration file ``conf_json``'s
+        arch (``reference/<arch>.py``): ``from_json``, ``schema``,
+        ``active_params`` and ``Model``."""
+        return self._module("reference", conf_json.get("arch", DEFAULT_ARCH))
+
+    def program(self, conf_json: dict) -> ModuleType:
+        """The program module of its arch (``programs/<arch>.py``):
+        ``program_config``."""
+        return self._module("programs", conf_json.get("arch", DEFAULT_ARCH))
+
+    def _module(self, folder: str, name: str) -> ModuleType:
+        """``<folder>/<name>.py`` of this checkout, or of the benchmark's
+        own folder where the checkout has none (a test's checkout holds
+        only data and what it adds); each file loaded once, and kept in
+        ``sys.modules`` so that `arch_of` finds it."""
+        if not re.fullmatch(r"[A-Za-z0-9_]+", name):
+            raise ValueError(f"arch {name!r}: letters, digits and _ only")
+        path = self.here / folder / f"{name}.py"
+        own = HERE / folder / f"{name}.py"
+        if not path.exists() or path.resolve() == own.resolve():
+            if not own.exists():
+                raise FileNotFoundError(f"no {folder} module for arch "
+                                        f"{name!r}: {path}")
+            return importlib.import_module(f"portbench.{folder}.{name}")
+        mod_name = "portbench_" + re.sub(r"\W", "_", str(path.resolve()))
+        mod = sys.modules.get(mod_name)
+        if mod is None:
+            spec = importlib.util.spec_from_file_location(mod_name, path)
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[mod_name] = mod
+            try:
+                spec.loader.exec_module(mod)
+            except BaseException:
+                del sys.modules[mod_name]
+                raise
+        return mod
+
+
+def arch_of(conf) -> ModuleType:
+    """The reference module whose ``from_json`` made ``conf``: the module
+    that defines its class."""
+    return sys.modules[type(conf).__module__]

@@ -9,8 +9,8 @@ size, on the card (the benchmark's runs never run this):
   rounds and the Sophia m and h stored in bfloat16), the step that
   would tempt a change to the memory-bound optimiser passes;
 * ``fp8``: the reference in the program's place with its products one
-  precision below the configuration's bfloat16 (`Fp8Model`), the step
-  that would tempt a change to the GEMMs;
+  precision below the configuration's bfloat16 (`fp8_model` of the
+  arch's ``Model``), the step that would tempt a change to the GEMMs;
 * ``half_batch``: the program with half of each batch left out, the
   mean taken over the rest (the loss and the GNB's loss alike).
 
@@ -39,8 +39,6 @@ for _p in (str(ROOT / "src"), str(ROOT)):
 import torch  # noqa: E402
 
 from portbench import cells, check, harness  # noqa: E402
-from portbench.reference import conf as rconf  # noqa: E402
-from portbench.reference.model import Model  # noqa: E402
 
 
 def e4m3(t: torch.Tensor) -> torch.Tensor:
@@ -52,14 +50,13 @@ def e4m3(t: torch.Tensor) -> torch.Tensor:
     return t + (q - t.detach())
 
 
-class Fp8Model(Model):
-    """The reference with each linear layer's product in float8: both
-    operands rounded to e4m3 (`e4m3`), the product in float32; the
-    backward's products take the rounded operands."""
-
-    @staticmethod
-    def lin(x, w):
-        return e4m3(x) @ e4m3(w)
+def fp8_model(model: type) -> type:
+    """The reference ``model`` (an arch's ``Model``, every linear product
+    through its ``lin``) with each product in float8: both operands
+    rounded to e4m3 (`e4m3`), the product in float32; the backward's
+    products take the rounded operands."""
+    return type(f"Fp8{model.__name__}", (model,),
+                {"lin": staticmethod(lambda x, w: e4m3(x) @ e4m3(w))})
 
 
 def half_batch(prog: harness.Program) -> None:
@@ -92,7 +89,7 @@ def readings(bench: cells.Bench, name: str, seeds, control_seeds,
     cell = bench.workload(name)
     conf_json = bench.config(cell["config"])
     tr = bench.traffic(cell["traffic"])
-    conf = rconf.from_json(conf_json)
+    conf = bench.arch(conf_json).from_json(conf_json)
     for seed in dict.fromkeys(list(seeds) + list(control_seeds)
                               + list(fault_seeds) + list(fp8_seeds)):
         t0 = time.perf_counter()
@@ -107,7 +104,7 @@ def readings(bench: cells.Bench, name: str, seeds, control_seeds,
             progs["half_batch"] = half_batch
         reads = {}
         for label, hook in progs.items():
-            prog = harness.Program(conf_json, tr, device)
+            prog = harness.Program(conf_json, tr, device, bench)
             if hook:
                 hook(prog)
             tokens, labels = inputs.pool()
@@ -117,7 +114,8 @@ def readings(bench: cells.Bench, name: str, seeds, control_seeds,
             harness.empty_cache(device)
         if seed in fp8_seeds:
             reads["fp8"] = harness.reference_readout(
-                conf, tr, inputs, model=Fp8Model, keep=True)
+                conf, tr, inputs, model=fp8_model(cells.arch_of(conf).Model),
+                keep=True)
             harness.empty_cache(device)
         ref = harness.reference_readout(conf, tr, inputs,
                                         others=list(reads.values()))

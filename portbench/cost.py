@@ -11,10 +11,7 @@ them.
 """
 from __future__ import annotations
 
-import math
-
-from portbench import weights
-from portbench.reference.conf import Conf
+from portbench import cells, weights
 
 PEAK_BF16_FLOPS = 989.4e12
 HBM_BYTES_PER_S = 3.35e12
@@ -41,27 +38,6 @@ def activity_class(name: str) -> str:
     return "other"
 
 
-def active_params(conf: Conf) -> float:
-    """Parameters that take part in a token's products: every weight but
-    the routed experts' unchosen share (top_k of n_routed_experts kept)
-    and, for an untied head, the input token table (a lookup, no
-    product).  A tied table counts once, as the head."""
-    total = routed = 0
-    for key, (shape, _, _) in weights.schema(conf).items():
-        n = math.prod(shape)
-        if key == "embed" and not conf.tie_word_embeddings:
-            continue
-        total += n
-        if conf.moe is not None and key in ("blocks_0/ffn/w_gate",
-                                            "blocks_0/ffn/w_up",
-                                            "blocks_0/ffn/w_down"):
-            routed += n
-    if routed:
-        mo = conf.moe
-        total -= routed * (1 - mo.num_experts_per_tok / mo.n_routed_experts)
-    return float(total)
-
-
 def refreshes_per_round(traffic: dict) -> float:
     """GNB refreshes a client makes a round, on average over the
     refresh period: local step j of round r refreshes when ``(r * J +
@@ -78,22 +54,22 @@ def trained_tokens(traffic: dict) -> int:
             * traffic["seq"])
 
 
-def model_flops(conf: Conf, traffic: dict) -> float:
-    """Model FLOPs a round: 6 x active parameters x trained tokens, plus
-    one forward and backward (6 x active x tokens of a batch) per GNB
-    refresh of each client.  Attention's score products and recompute
-    are not counted."""
+def model_flops(conf, traffic: dict) -> float:
+    """Model FLOPs a round: 6 x active parameters (``active_params`` of
+    ``conf``'s arch) x trained tokens, plus one forward and backward (6 x
+    active x tokens of a batch) per GNB refresh of each client.
+    Attention's score products and recompute are not counted."""
     tokens = trained_tokens(traffic)
     gnb = (traffic["clients"] * refreshes_per_round(traffic)
            * traffic["batch"] * traffic["seq"])
-    return 6.0 * active_params(conf) * (tokens + gnb)
+    return 6.0 * cells.arch_of(conf).active_params(conf) * (tokens + gnb)
 
 
-def packed_rows(conf: Conf) -> int:
+def packed_rows(conf) -> int:
     return -(-weights.count(conf) // PACK_COLS)
 
 
-def sophia_bytes(conf: Conf, traffic: dict) -> float:
+def sophia_bytes(conf, traffic: dict) -> float:
     """Bytes of a round's Sophia updates: per client and local step,
     theta, m, h, g and h_hat read once and theta, m, h written once, each
     fp32 over the packed layout."""
@@ -101,7 +77,7 @@ def sophia_bytes(conf: Conf, traffic: dict) -> float:
     return float(traffic["clients"] * traffic["local_iters"] * 8 * 4 * P)
 
 
-def quant_bytes(conf: Conf, traffic: dict) -> float:
+def quant_bytes(conf, traffic: dict) -> float:
     """Bytes of a round's int8 uplink round trips: per client the delta
     and its noise read once, the row scales read once, the
     reconstruction written once (fp32)."""

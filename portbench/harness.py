@@ -21,7 +21,6 @@ layout description.
 """
 from __future__ import annotations
 
-import dataclasses
 import gc
 import math
 import os
@@ -30,15 +29,14 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from portbench import cells, check, cost, traffic as gen, weights
 from portbench import trace as ptrace
-from portbench.reference import conf as rconf
 from portbench.reference.fed import FedRef, Hyper, leaf_norms
-from portbench.reference.model import Model, no_tf32
+from portbench.reference.layers import no_tf32
 
 #: top-level module names that may not be loaded when the window closes
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -73,48 +71,24 @@ def loaded_forbidden() -> List[str]:
                   & set(FORBIDDEN))
 
 
-def program_config(d: dict):
-    """The program's model config as the configuration file states it:
-    the port's arch config with every size of the file."""
-    from repro_torch import configs
-    from repro_torch.configs.base import MLAConfig, MoEConfig
-    c = rconf.from_json(d)
-    ch = dict(num_layers=c.num_hidden_layers, d_model=c.hidden_size,
-              num_heads=c.num_attention_heads,
-              num_kv_heads=c.num_key_value_heads, vocab_size=c.vocab_size,
-              tie_embeddings=c.tie_word_embeddings, rope_theta=c.rope_theta,
-              scale_emb=c.scale_emb, residual_scale=c.residual_scale,
-              d_ff=c.intermediate_size, dtype=c.dtype)
-    if c.mla is not None:
-        m = c.mla
-        ch["head_dim"] = c.head_dim
-        ch["mla"] = MLAConfig(kv_lora_rank=m.kv_lora_rank,
-                              qk_nope_head_dim=m.qk_nope_head_dim,
-                              qk_rope_head_dim=m.qk_rope_head_dim,
-                              v_head_dim=m.v_head_dim)
-    if c.moe is not None:
-        mo = c.moe
-        ch["moe"] = MoEConfig(num_experts=mo.n_routed_experts,
-                              top_k=mo.num_experts_per_tok,
-                              d_ff_expert=mo.moe_intermediate_size,
-                              num_shared=mo.n_shared_experts,
-                              d_ff_shared=mo.moe_intermediate_size,
-                              capacity_factor=mo.capacity_factor,
-                              aux_loss_coef=mo.aux_loss_coef)
-    return dataclasses.replace(configs.get_model_config(d["port"]["arch"]),
-                               **ch)
+def program_config(d: dict, bench: Optional[cells.Bench] = None):
+    """The program's model config as configuration file ``d`` states it,
+    by the program module of its arch (`cells.Bench.program`)."""
+    bench = bench or cells.Bench()
+    return bench.program(d).program_config(d, bench.arch(d).from_json(d))
 
 
 class Program:
     """The system under test: `FedEngine` over the program's `LMTask`,
     with the arch's own federated strategy and schedule."""
 
-    def __init__(self, conf_json: dict, traffic: dict, device):
+    def __init__(self, conf_json: dict, traffic: dict, device,
+                 bench: Optional[cells.Bench] = None):
         from repro_torch import configs
         from repro_torch.configs.base import CommConfig, FedConfig
         from repro_torch.core.fed import FedEngine
         from repro_torch.models.transformer import LMTask
-        self.cfg = program_config(conf_json)
+        self.cfg = program_config(conf_json, bench)
         over = configs.get_fed_overrides(conf_json["port"]["arch"])
         strategy = over.get("strategy", "parallel")
         if strategy != traffic["strategy"]:
@@ -224,7 +198,8 @@ def empty_cache(device: torch.device) -> None:
 class RunData:
     """What the metric readers read (`portbench/metrics/*.py`)."""
     cell: str
-    conf: rconf.Conf
+    #: the sizes the cell's arch read (its module: `cells.arch_of`)
+    conf: Any
     traffic: dict
     setup_s: float
     rounds: int = 0
@@ -246,7 +221,7 @@ class Inputs:
     batches, the checked rounds' gumbel draws and uplink noise.  Each is
     made the same way for the program and for the reference."""
 
-    def __init__(self, conf: rconf.Conf, traffic: dict, seed: int, device):
+    def __init__(self, conf, traffic: dict, seed: int, device):
         self.conf, self.tr, self.seed, self.dev = conf, traffic, seed, device
 
     def weights(self):
@@ -312,16 +287,17 @@ def checked_rounds(prog: Program, inputs: Inputs, tokens, labels):
     return state, readout
 
 
-def reference_readout(conf: rconf.Conf, traffic: dict, inputs: Inputs,
-                      others=(), model: type = Model, keep: bool = False
+def reference_readout(conf, traffic: dict, inputs: Inputs, others=(),
+                      model: Optional[type] = None, keep: bool = False
                       ) -> dict:
     """The reference's readout of the checked rounds (`check`), on the
     same inputs as the program's.  For each readout of ``others`` (the
     program's, the control's), the distance of its client 0 vectors from
     the reference's, leaf by leaf, goes into its ``"dist"``.  ``model``
-    is the reference's model class (`portbench.control` gives one of
-    lower precision); ``keep`` keeps client 0's vectors on the host in
-    the readout's ``"vec"``, as the program's readout has them."""
+    is the reference's model class, by default the ``Model`` of
+    ``conf``'s arch (`portbench.control` gives one of lower precision);
+    ``keep`` keeps client 0's vectors on the host in the readout's
+    ``"vec"``, as the program's readout has them."""
     tr = traffic
     hp = Hyper(clients=tr["clients"], local_iters=tr["local_iters"],
                tau=tr["tau"], lr=tr["lr"], compressor=tr["compressor"],
@@ -339,6 +315,7 @@ def reference_readout(conf: rconf.Conf, traffic: dict, inputs: Inputs,
     with no_tf32():
         u = inputs.uplink()
         tokens, labels = inputs.pool()
+        model = model or cells.arch_of(conf).Model
         ref = FedRef(model(conf), hp, inputs.weights())
         out: dict = {"loss": []}
         if keep:
@@ -392,13 +369,13 @@ def run(name: str, seed: int, seconds: float, traced: bool,
     cell = bench.workload(name)
     conf_json = bench.config(cell["config"])
     tr = bench.traffic(cell["traffic"])
-    conf = rconf.from_json(conf_json)
+    conf = bench.arch(conf_json).from_json(conf_json)
     log(f"portbench: cell {name} seed {seed} seconds {seconds} trace "
         f"{int(traced)} on {card_line(device)}")
     inputs = Inputs(conf, tr, seed, device)
 
     # ---------------------------------------------------------- set-up
-    prog = Program(conf_json, tr, device)
+    prog = Program(conf_json, tr, device, bench)
     if program_hook is not None:
         program_hook(prog)
     tokens, labels = inputs.pool()

@@ -32,13 +32,19 @@ refresh and the uplink's U[0, 1) noise, the same the program got.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Protocol
 
 import torch
 
-from portbench.reference.model import Model
-
 Params = Dict[str, torch.Tensor]
+
+
+class LM(Protocol):
+    """What the round needs of an arch's reference ``Model``."""
+
+    def loss(self, p: Params, tokens, labels) -> torch.Tensor: ...
+
+    def sampled_loss(self, p: Params, tokens, gumbel) -> torch.Tensor: ...
 
 
 @dataclass(frozen=True)
@@ -117,7 +123,7 @@ class FedRef:
     """The reference federated run: the server model, every client's m
     and h, and a round at a time."""
 
-    def __init__(self, model: Model, hyper: Hyper, theta0: Params):
+    def __init__(self, model: LM, hyper: Hyper, theta0: Params):
         self.model = model
         self.hp = hyper
         self.dtypes = {k: v.dtype for k, v in theta0.items()}

@@ -1,16 +1,21 @@
-"""The benchmark finds every cell, configuration, traffic mix and metric
-by name; a new cell, traffic mix or metric is picked up as new files
-and entries alone; ``BENCHMARK.json`` keeps to its documented shape; the
-configuration files state the program's configurations as run."""
+"""The benchmark finds every cell, configuration, traffic mix, metric and
+arch by name; a new cell, traffic mix, metric or arch is picked up as
+new files and entries alone; ``BENCHMARK.json`` keeps to its documented
+shape; the configuration files state the program's configurations as
+run."""
 import dataclasses
+import hashlib
 import json
 import re
+import shutil
 
 import pytest
 import torch
 
-from portbench import cells, check, harness, tiny, weights
-from portbench.reference import conf as rconf
+from portbench import (cells, check, control, harness, tiny, traffic,
+                       weights)
+from portbench.programs import decoder as program_decoder
+from portbench.reference import decoder
 
 BENCH = cells.Bench()
 CELLS = [w["name"] for w in BENCH.spec["workloads"]]
@@ -23,9 +28,12 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_found_by_name(cell):
     w = BENCH.workload(cell)
-    conf = rconf.from_json(BENCH.config(w["config"]))
+    d = BENCH.config(w["config"])
+    conf = BENCH.arch(d).from_json(d)
     tr = BENCH.traffic(w["traffic"])
-    assert conf.num_hidden_layers == 2 and tr["checked_rounds"] == 3
+    assert tr["checked_rounds"] == 3
+    if BENCH.arch(d) is decoder:
+        assert conf.num_hidden_layers == 2
     limits = BENCH.limits(cell)
     assert limits and set(limits) <= set(check.NUMBERS)
     assert {"grad_dist", "change_dist"} <= set(limits)
@@ -33,6 +41,21 @@ def test_cell_files_found_by_name(cell):
     assert "setup_s" in e2e and len(e2e) >= 2
     moved = {m["moves"] for m in BENCH.metrics(cell, "per_layer")}
     assert moved and moved <= e2e
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH.spec["configs"]
+                                  if "arch" not in BENCH.config(c["name"])])
+def test_config_without_arch_gets_the_decoder(name):
+    d = BENCH.config(name)
+    assert BENCH.arch(d) is decoder and BENCH.program(d) is program_decoder
+    assert cells.arch_of(decoder.from_json(d)) is decoder
+
+
+@pytest.mark.parametrize("arch,error", [("no_such_arch", FileNotFoundError),
+                                        ("../decoder", ValueError)])
+def test_unknown_arch_refused(arch, error):
+    with pytest.raises(error):
+        BENCH.arch({"arch": arch})
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -96,7 +119,7 @@ def test_config_file_is_the_program_config_as_run(name):
 def test_weights_have_the_program_layout(name, params):
     from repro_torch.models import transformer as T
     d = BENCH.config(name)
-    conf = rconf.from_json(d)
+    conf = BENCH.arch(d).from_json(d)
     port = T.init_lm(T._ShapeOnly(), harness.program_config(d))
     assert {k: (tuple(v.shape), v.dtype) for k, v in port.items()} == {
         k: (s, dt) for k, (s, dt, _) in weights.schema(conf).items()}
@@ -132,3 +155,71 @@ def test_new_cell_traffic_and_metric_are_picked_up(tmp_path):
     assert res["metrics"]["rounds_done"]["value"] == res["attempted"] >= 1
     assert set(res["metrics"]) == {"rounds_done", "setup_s"}
     assert list(res)[-1] == "check"
+
+
+def hashes(folder):
+    return {p: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in folder.rglob("*") if p.is_file()}
+
+
+def test_new_arch_is_picked_up_as_files(tmp_path):
+    """An arch added as files and BENCHMARK.json entries only: a copy of
+    the decoder's two modules under a new name, a configuration that
+    names it and a cell over it (tiny, on the CPU).  The lookup finds
+    the copies, the weights are the decoder's bit for bit, program and
+    reference agree at float32, the float8 control builds for the new
+    ``Model`` and is judged not correct, and no file that was there
+    changes."""
+    bench = tiny.write(tmp_path, dtype="float32")
+    here = bench.here
+    before = hashes(here)
+    arch, name, cell = "decoder_copy", "copy.l2", "copy-l2.par-c4.j5.b2s256"
+    for folder in ("reference", "programs"):
+        (here / folder).mkdir(exist_ok=True)
+        shutil.copy(cells.HERE / folder / "decoder.py",
+                    here / folder / f"{arch}.py")
+    base_d = bench.config("minicpm-2b.l2")
+    d = dict(base_d, name=name, arch=arch)
+    (here / "configs" / f"{name}.json").write_text(json.dumps(d))
+    shutil.copy(here / "limits" / "minicpm2b-l2.par-c4.j5.b2s256.json",
+                here / "limits" / f"{cell}.json")
+    spec = bench.spec
+    spec["configs"].append({"name": name, "source": "test",
+                            "file": f"portbench/configs/{name}.json",
+                            "reduced": [], "why": "test"})
+    spec["workloads"].append({"name": cell, "config": name,
+                              "traffic": "par-c4.j5.b2s256", "chips": 1,
+                              "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    bench = cells.Bench(tmp_path)
+
+    ref, prog = bench.arch(d), bench.program(d)
+    assert ref.__file__ == str(here / "reference" / f"{arch}.py")
+    assert prog.__file__ == str(here / "programs" / f"{arch}.py")
+    assert bench.arch(d) is ref and ref is not decoder
+    conf, base = ref.from_json(d), decoder.from_json(base_d)
+    assert cells.arch_of(conf) is ref and cells.arch_of(base) is decoder
+    assert harness.program_config(d, bench) == harness.program_config(base_d)
+
+    def draw(c):
+        return weights.make(c, traffic.generator(torch.device("cpu"), 5,
+                                                 traffic.WEIGHTS))
+    mine, theirs = draw(conf), draw(base)
+    assert list(mine) == list(theirs)
+    assert all(torch.equal(mine[k], theirs[k]) for k in theirs)
+
+    res = harness.run(cell, 3, 0.05, False, torch.device("cpu"), bench)
+    assert res["correct"] is True, res["check"]
+    gaps = {k: v["value"] for k, v in res["check"].items()}
+    assert gaps.pop("change_dist") < 2e-3 and max(gaps.values()) < 2e-5, gaps
+
+    fp8 = control.fp8_model(ref.Model)
+    assert issubclass(fp8, ref.Model) and fp8.lin is not ref.Model.lin
+    tr = bench.traffic("par-c4.j5.b2s256")
+    inputs = harness.Inputs(conf, tr, 17, torch.device("cpu"))
+    ctl = harness.reference_readout(conf, tr, inputs, model=fp8, keep=True)
+    r = harness.reference_readout(conf, tr, inputs, others=[ctl])
+    assert not check.verdict(check.compare(ctl, r), bench.limits(cell))[0]
+
+    after = hashes(here)
+    assert {p: h for p, h in after.items() if p in before} == before

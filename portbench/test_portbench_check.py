@@ -8,7 +8,6 @@ import pytest
 import torch
 
 from portbench import cells, check, control, harness, tiny
-from portbench.reference import conf as rconf
 
 CELLS = [w["name"] for w in cells.Bench().spec["workloads"]]
 CPU = torch.device("cpu")
@@ -23,7 +22,7 @@ def parts(bench, cell, seed):
     w = bench.workload(cell)
     d = bench.config(w["config"])
     tr = bench.traffic(w["traffic"])
-    conf = rconf.from_json(d)
+    conf = bench.arch(d).from_json(d)
     return d, tr, conf, harness.Inputs(conf, tr, seed, CPU)
 
 
@@ -31,8 +30,8 @@ def parts(bench, cell, seed):
 def test_reference_matches_program_at_float32(bench, cell):
     d, tr, conf, inputs = parts(bench, cell, 2 ** 31 + 5)
     tokens, labels = inputs.pool()
-    _, prog = harness.checked_rounds(harness.Program(d, tr, CPU), inputs,
-                                     tokens, labels)
+    _, prog = harness.checked_rounds(harness.Program(d, tr, CPU, bench),
+                                     inputs, tokens, labels)
     ref = harness.reference_readout(conf, tr, inputs, others=[prog])
     numbers = check.compare(prog, ref)
     assert set(numbers) == set(check.NUMBERS)
@@ -54,8 +53,8 @@ def test_control_is_not_correct(bench, cell):
 def test_fp8_control_is_not_correct(bench, cell):
     """The reference with float8 products in the program's place."""
     d, tr, conf, inputs = parts(bench, cell, 17)
-    ctl = harness.reference_readout(conf, tr, inputs, model=control.Fp8Model,
-                                    keep=True)
+    fp8 = control.fp8_model(cells.arch_of(conf).Model)
+    ctl = harness.reference_readout(conf, tr, inputs, model=fp8, keep=True)
     ref = harness.reference_readout(conf, tr, inputs, others=[ctl])
     numbers = check.compare(ctl, ref)
     assert not check.verdict(numbers, bench.limits(cell))[0], numbers

@@ -2,8 +2,9 @@
 and the trace reduction on a hand-made trace."""
 import pytest
 
-from portbench import cost, weights
-from portbench.reference.conf import MoE, Conf
+from portbench import cells, cost, weights
+from portbench.reference import decoder
+from portbench.reference.decoder import MoE, Conf
 from portbench.trace import Trace
 
 DENSE = Conf(name="t", hidden_size=8, num_hidden_layers=2,
@@ -28,7 +29,7 @@ def test_dense_counts_by_hand():
     # each, gate/up 8x16, down 16x8
     per_layer = 2 * 8 + 4 * 64 + 3 * 128
     assert weights.count(DENSE) == 256 * 8 + 8 + 2 * per_layer == 3368
-    assert cost.active_params(DENSE) == 3368          # tied: table once
+    assert decoder.active_params(DENSE) == 3368       # tied: table once
     # 3 clients x 2 steps x 10 tokens trained + 3 refreshes x 10 tokens
     assert cost.trained_tokens(TRAFFIC) == 60
     assert cost.model_flops(DENSE, TRAFFIC) == 6 * 3368 * (60 + 30)
@@ -46,7 +47,30 @@ def test_moe_active_params_by_hand():
     routed = 3 * 4 * 8 * 2
     total = 256 * 8 + 8 * 256 + 8 + 16 + 256 + 32 + routed + 3 * 16
     assert weights.count(MOE) == total
-    assert cost.active_params(MOE) == total - 256 * 8 - routed * 3 / 4
+    assert decoder.active_params(MOE) == total - 256 * 8 - routed * 3 / 4
+
+
+#: the counts the readers take for each cell, as the benchmark computed
+#: them before its archs became modules of their own: model FLOPs a
+#: round, Sophia bytes a round, int8 uplink bytes a round
+CELL_COUNTS = {
+    "minicpm2b-l2.par-c4.j5.b2s256": (29876104986624.0, 259341680640.0,
+                                      19456957632.0),
+    "dsv2lite-l2.seq-c2-int8.b2s256": (6929063608320.0, 203408408576.0,
+                                       38151491672.0),
+    "minicpm2b-l2.par-c4.b4s512": (59752209973248.0, 103736672256.0,
+                                   19456957632.0),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_COUNTS))
+def test_cell_counts_pinned(cell):
+    bench = cells.Bench()
+    w = bench.workload(cell)
+    d = bench.config(w["config"])
+    conf, tr = bench.arch(d).from_json(d), bench.traffic(w["traffic"])
+    assert (cost.model_flops(conf, tr), cost.sophia_bytes(conf, tr),
+            cost.quant_bytes(conf, tr)) == CELL_COUNTS[cell]
 
 
 @pytest.mark.parametrize("J,tau,want", [(2, 2, 1.0), (3, 2, 1.5),

@@ -1,6 +1,7 @@
 """No module of the benchmark imports JAX or the JAX package (top-level
 names compared whole: the port's name begins with the JAX package's),
-and the reference imports nothing of the program."""
+the reference imports nothing of the program, and a program module
+imports the program only inside its functions."""
 import ast
 from pathlib import Path
 
@@ -37,6 +38,20 @@ def test_reference_imports_nothing_of_the_program(path):
         if isinstance(node, ast.ImportFrom) and node.module.startswith(
                 "portbench"):
             assert node.module.startswith("portbench.reference"), node.module
+
+
+@pytest.mark.parametrize("path", sorted((HERE / "programs").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_program_modules_import_the_program_inside_functions(path):
+    """A program module imports the program only when its mapping runs."""
+    tree = ast.parse(path.read_text())
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split(".", 1)[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            top.add(node.module.split(".", 1)[0])
+    assert top <= {"__future__", "dataclasses", "math", "typing"}, top
 
 
 def test_forbidden_modules_by_whole_top_level_name(monkeypatch):

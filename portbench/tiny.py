@@ -1,6 +1,7 @@
 """A tiny copy of the benchmark for the CPU tests: the same
 ``BENCHMARK.json`` cells and metrics over configurations of the same
-shape at small widths (the keys of the real files, the sizes cut) and
+shape at small widths (the keys of the real files, the sizes cut by
+``portbench/tiny_widths/<configuration>.json``, found by name) and
 traffic of the same mix at small batches, written to a folder of its
 own.  The real configurations and traffic are read, never changed."""
 from __future__ import annotations
@@ -11,19 +12,6 @@ from pathlib import Path
 
 from portbench import cells
 
-#: the sizes of the tiny configurations, by the real file's name
-WIDTHS = {
-    "minicpm-2b.l2": {"hidden_size": 64, "num_attention_heads": 4,
-                      "num_key_value_heads": 4, "intermediate_size": 128,
-                      "vocab_size": 300},
-    "deepseek-v2-lite-16b.l2": {
-        "hidden_size": 64, "num_attention_heads": 4,
-        "num_key_value_heads": 4, "kv_lora_rank": 32,
-        "qk_nope_head_dim": 16, "qk_rope_head_dim": 8, "v_head_dim": 16,
-        "n_routed_experts": 8, "num_experts_per_tok": 2,
-        "moe_intermediate_size": 32, "n_shared_experts": 1,
-        "vocab_size": 300},
-}
 #: the tiny traffic: small batches, a short pool and trace
 TRAFFIC = {"batch": 2, "seq": 8, "pool_rounds": 4, "checked_rounds": 2,
            "trace_rounds": 2}
@@ -43,7 +31,8 @@ def write(dest: Path, dtype: str = "float32") -> cells.Bench:
     spec = json.loads(json.dumps(real.spec))
     for c in spec["configs"]:
         d = real.config(c["name"])
-        d.update(WIDTHS[c["name"]])
+        d.update(json.loads((real.here / "tiny_widths" /
+                             f"{c['name']}.json").read_text()))
         d["torch_dtype"] = dtype
         c["file"] = f"portbench/configs/{c['name']}.json"
         (dest / c["file"]).write_text(json.dumps(d, indent=1))
